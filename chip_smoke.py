@@ -7,8 +7,9 @@ Needs one CUDA card and `nvcc`; exits non-zero without them, and when
 run outside a checkout of this repository.  Phases, one line each:
 
  1. the card's name and power limit (`nvidia-smi`), then K1
-    (`src/repro_torch/kernels/csrc/level_expand.cu`) built with nvcc for
-    sm_90a from the checkout's sources;
+    (`src/repro_torch/kernels/csrc/level_expand.cu`) and K4
+    (`csrc/flash_attention.cu`) built with nvcc for sm_90a from the
+    checkout's sources, one nvcc per source, started together;
  2. K1 against its plain PyTorch version on the card, bit-equal, on
     windows of the wiki-vote-syn CSR at main-path shapes (B = 32768,
     D ∈ {128, 1024, 1917}, P ∈ {1, 2, 3}) in mask, count and signed mode;
@@ -26,12 +27,35 @@ run outside a checkout of this repository.  Phases, one line each:
  6. K1's time per launch on the largest real main-path launch of each
     mode, beside its plain version's and the card's bound.
 
+ 7. K4 against its plain PyTorch version on the card: the reference
+    test's shapes, causal and bidirectional, bf16 and fp32, within the
+    reference's tolerances (3e-2 / 2e-5), and the qwen3-1.7b serving
+    shape (q [64, 2048, 128] over k/v [32, 2048, 128], bf16, causal);
+ 8. qwen3-1.7b at full width and depth (random weights from seed 0)
+    through `repro_torch.launch.serve.main`: batch 4, a 2,048-token
+    prompt, 16 generated tokens; then a second session with the same
+    seed that evicts slot 2 after 4 steps and admits a new sequence
+    (its undisturbed rows must equal the served run's tokens); then
+    the kernel-path prefill's logits against the plain-attention
+    path's on the same weights and prompts (limits PREFILL_MAX_ABS and
+    PREFILL_MEAN_ABS below, with their reasons); and a torch.profiler
+    window over one batch prefill and 4 decode steps (device kernel
+    time against unprofiled wall time, top kernels);
+ 9. K4's time per launch at the serving shape beside its plain
+    version's, PyTorch's `scaled_dot_product_attention` on the same
+    tensors (the library yardstick; the port never calls it) and the
+    card's bound.
+
 Every count of phases 3–4 sets K1's launch counters to 0 just before it
 and reads them just after; a kernel-path count must launch exactly the
-modes its plan needs, a portable-path count none.
+modes its plan needs, a portable-path count none.  In phase 8 K4's
+counter is set to 0 just before each batch prefill, admission and
+decode call and read just after: n_layers (28) launches per prefill
+and per admission, none in decode.
 
-Counts are integers and every comparison is exact (no tolerance).  The
-last two lines are the kernels record and the device record (JSON).
+Counts are integers and every comparison of phases 2–6 is exact (no
+tolerance).  The last two lines are the kernels record and the device
+record (JSON).
 """
 from __future__ import annotations
 
@@ -299,34 +323,74 @@ def bound_of(cand, starts, lens, extra, valid, count, window):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def main() -> int:
+# ------------------------------------------------------------ K4 -----
+# The reference test's shapes (tests/test_flash_kernel.py:16-22):
+# (BH, BK, Sq, Sk, hd); and the qwen3-1.7b serving shape (batch 4 x 16
+# query heads over 4 x 8 KV heads, a 2,048-token prompt, head dim 128).
+FLASH_SHAPES = [(4, 4, 256, 256, 64), (8, 2, 256, 256, 64),
+                (6, 6, 128, 128, 128), (2, 1, 512, 512, 32),
+                (3, 3, 384, 384, 64)]
+SERVE_ROWS = (64, 32, 2048, 2048, 128)
+# The reference's own tolerances (tests/test_flash_kernel.py:39).
+FLASH_ATOL = {"bfloat16": 3e-2, "float32": 2e-5}
+BF16_FLOPS = 989e12              # H100 SXM dense bf16 tensor cores
+
+
+def flash_inputs(shape, dtype, seed):
+    """q [BH, Sq, hd] and k, v [BK, Sk, hd], standard normal, on the card."""
     import torch
 
-    if not torch.cuda.is_available():
-        print("[smoke] FAIL: torch.cuda.is_available() is False",
-              flush=True)
-        return 1
+    BH, BK, Sq, Sk, hd = shape
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    return [torch.randn(s, generator=g, device=DEVICE).to(dtype)
+            for s in ((BH, Sq, hd), (BK, Sk, hd), (BK, Sk, hd))]
+
+
+def flash_err(got, want) -> float:
+    import torch
+
+    torch.cuda.synchronize()
+    return float((got.float() - want.float()).abs().max())
+
+
+def check_k4(errs) -> int:
+    """K4 against its plain version on the reference test's shapes
+    (causal and bidirectional, bf16 and fp32) and on the serving shape
+    (bf16, causal); each case within the reference's tolerance."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.ref import flash_attention_ref
+
+    cases = [(s, c, d) for s in FLASH_SHAPES for c in (True, False)
+             for d in ("bfloat16", "float32")]
+    cases.append((SERVE_ROWS, True, "bfloat16"))
+    for i, (shape, causal, dname) in enumerate(cases):
+        q, k, v = flash_inputs(shape, getattr(torch, dname), 100 + i)
+        got = flash_attention_cuda(q, k, v, causal=causal)
+        want = flash_attention_ref(q, k, v, causal=causal)
+        err = flash_err(got, want)
+        errs.append(err)
+        what = (f"K4 {shape} {'causal' if causal else 'bidir'} {dname}")
+        log(f"phase 7: {what}: max_abs_err={err:.3e} "
+            f"(atol {FLASH_ATOL[dname]:g})")
+        check(bool(torch.isfinite(got.float()).all()), f"{what}: not finite")
+        check(err <= FLASH_ATOL[dname], f"{what}: max_abs_err {err:.3e} > "
+              f"{FLASH_ATOL[dname]:g}")
+    return len(cases)
+
+
+def graph_phases(card) -> list:
+    """Phases 2-6: K1 against its plain version, the counting path end
+    to end, K1's launches and times.  Returns K1's kernel records."""
+    import torch
+
     from repro_torch.configs.graphpi import get_dataset, get_pattern
     from repro_torch.core.executor import (ExecutorConfig, auto_buckets,
                                            device_graph, triangle_plan)
-    from repro_torch.device import gpu_report
     from repro_torch.kernels import intersect, ops
     from repro_torch.kernels.ref import level_expand_ref
     from repro_torch.launch import mine
-
-    t_all = time.perf_counter()
-    card = gpu_report()
-    # ---- 1: card + build
-    log(f"phase 1: card: {card}; torch {torch.__version__} "
-        f"cuda {torch.version.cuda}")
-    t0 = time.perf_counter()
-    lib = intersect.build()
-    intersect.load()
-    log(f"phase 1: built {os.path.relpath(lib, ROOT)} in "
-        f"{time.perf_counter() - t0:.2f}s")
-    for line in intersect.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"phase 1: ptxas: {line.strip()}")
 
     # ---- 2: K1 vs plain, bit-equal
     wiki = get_dataset("wiki-vote-syn")
@@ -363,7 +427,7 @@ def main() -> int:
         # is the triangle count that bootstraps the performance model
         check_launches(f"{what} (count)", res.launches, res.plan, True)
         check_launches(f"{what} (stats)", {
-            k: run_launches[k] - res.launches[k] for k in run_launches},
+            k: run_launches[k] - res.launches[k] for k in res.launches},
             tri, True)
         got = res.result.count
         if p in TINY_ER_ORACLE:
@@ -516,6 +580,294 @@ def main() -> int:
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None,
         })
+    return kernels
+
+
+# --------------------------------------------------------- phases 7-9 --
+ARCH = "qwen3-1.7b"
+DEVICE = "cuda"
+SERVE_ARGV = ["--arch", ARCH, "--batch", "4", "--prompt-len", "2048",
+              "--gen", "16"]
+# Kernel-path vs plain-path prefill logits, both bf16 over 28 layers.
+# The plain path rounds q·k to bf16 before its fp32 softmax and the
+# weights to bf16 before p·v; K4 keeps both in fp32.  That rounding
+# noise compounds through the residual stream: on the CPU, at 28 layers
+# of hd 128 and d_model 256-512 (S = 512), the logits (std 0.33-0.45)
+# differed by at most 0.022-0.027 and by 0.005-0.006 on average.  At
+# full width the logits' std is ~0.9 (lm_head 0.02·√2048), so ~2x that.
+# The limits keep a ~5x margin; a kernel that got the attention wrong
+# (a wrong KV row, mask or scale) moves the logits by their own std.
+PREFILL_MAX_ABS = 0.25
+PREFILL_MEAN_ABS = 0.05
+
+
+class PhaseLaunches:
+    """Wraps LMSession's batch prefill, admission and decode: K4's launch
+    counter is set to 0 just before each call and read just after, and
+    kept as (phase, launches) in call order, with each session seen."""
+
+    PHASES = {"_prefill": "prefill", "admit": "admit",
+              "decode_steps": "decode"}
+
+    def __init__(self):
+        from repro_torch.serve.session import LMSession
+
+        self.cls = LMSession
+        self.records: list[tuple[str, int]] = []
+        self.sessions: list = []
+
+    def _wrap(self, fn, phase):
+        import torch
+
+        from repro_torch.kernels import ops
+
+        def wrapped(session, *a, **kw):
+            if session not in self.sessions:
+                self.sessions.append(session)
+            ops.reset_launches()
+            out = fn(session, *a, **kw)
+            torch.cuda.synchronize()
+            self.records.append((phase, ops.launches["flash"]))
+            return out
+        return wrapped
+
+    def __enter__(self):
+        self.saved = {n: getattr(self.cls, n) for n in self.PHASES}
+        for n, fn in self.saved.items():
+            setattr(self.cls, n, self._wrap(fn, self.PHASES[n]))
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(self.cls, n, fn)
+        return False
+
+
+def check_launches_k4(what, records, want) -> None:
+    log(f"phase 8: {what}: K4 launches per phase {records}")
+    check(records == want, f"{what}: K4 launches {records} != {want}")
+
+
+def profile_serving(session, cfg, batch, card) -> None:
+    """One kernel-path batch prefill and 4 decode steps of
+    `session`, each run once unprofiled (host clock, ending in a
+    synchronize) and once under torch.profiler.  Prints the device
+    kernels' summed time against the unprofiled wall time (the busy
+    share; the profiler's own overhead inflates its window) and the
+    kernels that took the most of it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve.serve_step import make_prefill
+
+    prefill = make_prefill(cfg, DEVICE, q_chunk=0)
+    for what, fn in (("prefill", lambda: prefill(session._params, batch)),
+                     ("decode x4", lambda: session.decode_steps(4))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kern = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+        busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
+        log(f"profile {what}: device kernels {busy_ms:.3f} ms in "
+            f"{sum(e.count for e in kern)} launches; unprofiled wall "
+            f"{wall_ms:.3f} ms; busy share {100 * busy_ms / wall_ms:.1f}% "
+            f"on {card}")
+        for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:8]:
+            log(f"profile {what}:   {e.self_device_time_total / 1e3:9.3f} "
+                f"ms  x{e.count:<5d} {e.key[:80]}")
+
+
+def serve_phase(card):
+    """Phase 8: qwen3-1.7b at full width and depth on the card, through
+    `repro_torch.launch.serve.main` (batch 4, prompt 2,048, 16 tokens),
+    then a second session that evicts one slot and admits a new
+    sequence, then kernel-path vs plain-path prefill logits.  Returns
+    K4's launches in the served batch prefill."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.serve.serve_step import make_prefill
+    from repro_torch.serve.session import LMSession, fake_prompts
+
+    cfg = get_config(ARCH)
+    L = cfg.n_layers
+    torch.cuda.reset_peak_memory_stats()
+    with PhaseLaunches() as rec:
+        rc = serve.main(SERVE_ARGV + ["--device", DEVICE])
+    check(rc == 0, f"serve.main exited {rc}")
+    check_launches_k4("serve.main", rec.records,
+                      [("prefill", L), ("decode", 0)])
+    served_launches = rec.records[0][1]
+    served = rec.sessions[0]
+    check(served.metrics()["flash_launches"] == L,
+          f"the session counted {served.metrics()['flash_launches']} "
+          f"K4 launches, not {L}")
+    m = served.metrics()
+    out = served.tokens_out()
+    check(out.shape == (4, 17) and out.min() >= 0 and out.max() < cfg.vocab,
+          f"served tokens {out.shape} out of range")
+    log(f"phase 8: serve.main {' '.join(SERVE_ARGV)}: prefill "
+        f"{4 * 2048 / m['prefill_seconds']:.0f} tok/s "
+        f"({m['prefill_seconds']:.4f} s), decode {m['ms_per_step']:.3f} "
+        f"ms/step ({m['decode_tok_s']:.1f} tok/s), peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {card}")
+    rec.sessions.clear()
+    del served
+
+    # continuous batching on the card: the same seed gives the served
+    # run's tokens; evict slot 2 after 4 steps and admit a new sequence;
+    # the undisturbed rows stay bit-identical to the served run
+    with PhaseLaunches() as rec:
+        s = LMSession(ARCH, batch=4, prompt_len=2048, gen=16, seed=0,
+                      device=DEVICE)
+        s.start()
+        s.decode_steps(4)
+        gone = s.evict(2)
+        slot = s.admit()
+        s.decode_steps(4)
+    check_launches_k4("evict/admit session", rec.records,
+                      [("prefill", L), ("decode", 0), ("admit", L),
+                       ("decode", 0)])
+    check(slot == 2, f"admitted into slot {slot}")
+    np_rows = s.tokens_out()
+    check((gone == out[2, :5]).all(), "evicted row differs from the "
+          "served run's")
+    check((np_rows[[0, 1, 3]] == out[[0, 1, 3], :9]).all(),
+          "undisturbed rows differ from the served run's")
+    log(f"phase 8: evict/admit: slot {slot} readmitted at position 2048; "
+        f"batch prefill + admission {s.prefill_seconds:.4f} s; the "
+        f"undisturbed rows equal the served run's")
+
+    # kernel path vs plain attention, same weights and prompts
+    batch = fake_prompts(cfg, 4, 2048, seed=0, device=DEVICE)
+    runs = {}
+    for name, flash in (("kernel", True), ("plain", False)):
+        ops.reset_launches()
+        logits, _ = make_prefill(cfg, DEVICE, q_chunk=0, flash=flash)(
+            s._params, batch)
+        torch.cuda.synchronize()
+        runs[name] = (logits, ops.launches["flash"])
+    (kl, kn), (pl, pn) = runs["kernel"], runs["plain"]
+    check((kn, pn) == (L, 0), f"prefill launches kernel={kn} plain={pn}")
+    check(bool(torch.isfinite(kl).all()), "kernel-path logits not finite")
+    diff = (kl - pl).abs()
+    d_max, d_mean = float(diff.max()), float(diff.mean())
+    log(f"phase 8: prefill logits [4, {cfg.vocab}] kernel vs plain path: "
+        f"max_abs={d_max:.4f} (limit {PREFILL_MAX_ABS}) mean_abs="
+        f"{d_mean:.5f} (limit {PREFILL_MEAN_ABS}) logit std "
+        f"{float(pl.std()):.4f}; argmax equal in "
+        f"{int((kl.argmax(-1) == pl.argmax(-1)).sum())}/4 rows; served "
+        f"first tokens {'equal' if (kl.argmax(-1).cpu().numpy() == out[:, 0]).all() else 'DIFFER'}")
+    check(d_max <= PREFILL_MAX_ABS and d_mean <= PREFILL_MEAN_ABS,
+          f"kernel vs plain prefill logits: max {d_max} mean {d_mean}")
+    check((kl.argmax(-1).cpu().numpy() == out[:, 0]).all(),
+          "kernel-path prefill tokens differ from the served run's")
+    profile_serving(s, cfg, batch, card)
+    return served_launches
+
+
+def time_k4(card, errs) -> dict:
+    """Phase 9: K4 at the serving shape, CUDA events (3 warm-up launches,
+    then 20 timed), beside the plain version, the library's SDPA on the
+    same tensors and the card's bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.ref import flash_attention_ref
+
+    BH, BK, S, _, hd = SERVE_ROWS
+    q, k, v = flash_inputs(SERVE_ROWS, torch.bfloat16, 7)
+    got = flash_attention_cuda(q, k, v, causal=True)
+    errs.append(flash_err(got, flash_attention_ref(q, k, v, causal=True)))
+    ms = time_ms(lambda: flash_attention_cuda(q, k, v, causal=True))
+    plain_ms = time_ms(lambda: flash_attention_ref(q, k, v, causal=True),
+                       iters=5)
+    B = 4
+    q4, k4, v4 = (t.view(B, t.shape[0] // B, S, hd) for t in (q, k, v))
+    sdpa = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
+                                          enable_gqa=True)
+    sdpa_err = flash_err(got.view(B, BH // B, S, hd), sdpa)
+    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=True, enable_gqa=True))
+    flops = 4.0 * BH * hd * S * (S + 1) / 2          # causal pairs only
+    nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
+    t_ops = flops / BF16_FLOPS * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ms, bound_by = ((t_ops, "operations") if t_ops >= t_bytes
+                          else (t_bytes, "bytes"))
+    log(f"phase 9: K4 q [{BH}, {S}, {hd}] k/v [{BK}, {S}, {hd}] bf16 "
+        f"causal: ms={ms:.4f} plain_ms={plain_ms:.4f} sdpa_ms="
+        f"{library_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}: "
+        f"{flops:.3e} FLOP, {nbytes / 1e9:.4f} GB) K4 vs sdpa "
+        f"max_abs={sdpa_err:.3e} on {card}")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms}
+
+
+def lm_phases(card) -> list:
+    """Phases 7-9; returns K4's kernel record."""
+    errs: list[float] = []
+    t0 = time.perf_counter()
+    n = check_k4(errs)
+    log(f"phase 7: K4 within tolerance of the plain version on {n} cases "
+        f"in {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    launches = serve_phase(card)
+    log(f"phase 8: serving checks in {time.perf_counter() - t0:.1f}s")
+    times = time_k4(card, errs)
+    return [{"name": "flash_attention", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+             "replaces": "src/repro/kernels/flash_attention.py:92",
+             "launches": launches, "max_abs_err": max(errs), **times}]
+
+
+def build_kernels() -> None:
+    """Phase 1: build K1 and K4 from the checkout's sources, one nvcc
+    per source, both started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.kernels import flash_attention, intersect, nvcc
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        libs = list(pool.map(lambda k: k.build(),
+                             (intersect, flash_attention)))
+    intersect.load()
+    flash_attention.load()
+    log(f"phase 1: built {', '.join(os.path.relpath(lib, ROOT) for lib in libs)}"
+        f" in {time.perf_counter() - t0:.2f}s")
+    for src in (intersect.SOURCE, flash_attention.SOURCE):
+        for line in nvcc.build_logs.get(src.name, "").splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"phase 1: ptxas {src.name}: {line.strip()}")
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("[smoke] FAIL: torch.cuda.is_available() is False",
+              flush=True)
+        return 1
+    from repro_torch.device import gpu_report
+
+    t_all = time.perf_counter()
+    card = gpu_report()
+    log(f"phase 1: card: {card}; torch {torch.__version__} "
+        f"cuda {torch.version.cuda}")
+    build_kernels()
+    kernels = graph_phases(card) + lm_phases(card)
     log(f"done in {time.perf_counter() - t_all:.1f}s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,0 +1,22 @@
+"""moonshot-v1-16b-a3b (Moonlight) [moe]: 64 experts top-6.
+[hf:moonshotai/Moonlight-16B-A3B; hf]"""
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="moonshot-v1-16b-a3b",
+    family="moe",
+    n_layers=48,
+    d_model=2048,
+    n_heads=16,
+    n_kv_heads=16,
+    d_ff=1408,
+    vocab=163840,
+    n_experts=64,
+    top_k=6,
+    d_expert=1408,
+)
+
+SMOKE = CONFIG.scaled(
+    n_layers=2, d_model=64, n_heads=4, n_kv_heads=4, d_ff=48, d_expert=48,
+    vocab=256, n_experts=8, top_k=2,
+)

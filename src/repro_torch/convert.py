@@ -1,13 +1,15 @@
-"""Carry the reference's state across: graphs and plans.
+"""Carry the reference's state across: graphs, plans and LM weights.
 
-Graphs and plans play the part that weights play in a model.  Both
-helpers take plain numpy arrays / JSON-able dicts — what the reference
-package's `GraphCSR` fields and `plan_to_dict` records are — so nothing
-here imports the reference.
+Graphs and plans play the part that weights play in a model.  Every
+helper takes plain numpy arrays / JSON-able dicts — what the reference
+package's `GraphCSR` fields, `plan_to_dict` records and params pytrees
+are once converted with `np.asarray` — so nothing here imports the
+reference.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .core.plan import MatchingPlan, plan_from_dict
 from .graph.csr import GraphCSR
@@ -42,3 +44,30 @@ def plan_from_reference(d: dict) -> MatchingPlan:
     """A port MatchingPlan from the reference's `plan_to_dict` record
     (the record format is shared, so this is `plan_from_dict`)."""
     return plan_from_dict(d)
+
+
+def lm_params_from_reference(tree: dict, *, device="cpu") -> dict:
+    """The port's dense-LM params (`models/transformer.py` layout) from
+    the reference's params pytree with numpy leaves.
+
+    The reference stacks its layers for `lax.scan`: every leaf under
+    `blocks/l<j>/...` has a leading [n_blocks] axis (block b, position j
+    is layer b·block_len + j).  The port keeps one dict per layer, so
+    each stacked leaf is split along that axis; the rest (embed,
+    final_norm, lm_head) maps one to one.  Leaves become fp32 tensors
+    on `device`."""
+    def leaf(a):
+        return torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
+
+    def walk(node, pick=None):
+        if isinstance(node, dict):
+            return {k: walk(v, pick) for k, v in node.items()}
+        return leaf(node if pick is None else np.asarray(node)[pick])
+
+    blocks = tree["blocks"]
+    blk = len(blocks)                   # layers per block: l0 .. l<blk-1>
+    n_blocks = np.asarray(blocks["l0"]["norm1"]["scale"]).shape[0]
+    out = {k: walk(v) for k, v in tree.items() if k != "blocks"}
+    out["layers"] = [walk(blocks[f"l{i % blk}"], i // blk)
+                     for i in range(n_blocks * blk)]
+    return out

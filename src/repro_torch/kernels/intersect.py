@@ -1,68 +1,36 @@
 """Loader and launcher of kernel K1, `csrc/level_expand.cu`.
 
 Counterpart of `repro/kernels/intersect.py::level_expand_pallas`.  The
-CUDA source is compiled with `nvcc` for `sm_90a` into a shared library
-with a plain C interface at first use (a few seconds), cached under
-`build/kernels/` by the source's content hash, and bound with `ctypes`.
-Nothing here runs at import time: the CPU tests import this module on
-machines with no `nvcc` and no card.
+CUDA source is compiled by `nvcc.build_library` at first use (a few
+seconds), cached under `build/kernels/` by the source's content hash,
+and bound with `ctypes`.  Nothing here runs at import time: the CPU
+tests import this module on machines with no `nvcc` and no card.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
 import pathlib
-import shutil
-import subprocess
 
 import torch
 
-from ..device import build_dir
+from . import nvcc
 
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "level_expand.cu"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_lib = None          # the loaded ctypes library (one per process)
-build_log = ""       # nvcc/ptxas output of the build this process ran
-
-
-def _nvcc() -> str:
-    nvcc = shutil.which("nvcc")
-    if nvcc is None:
-        home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-        nvcc = os.path.join(home, "bin", "nvcc")
-    if not os.path.exists(nvcc):
-        raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, "
-                           "/usr/local/cuda/bin); K1 cannot be built")
-    return nvcc
+_lib = None          # the loaded ctypes library, entry points declared
 
 
 def build() -> pathlib.Path:
     """Compile K1 unless a library for this exact source exists; returns
-    the library path.  Writes to a temporary name and renames, so
-    concurrent builders never load a half-written file."""
-    global build_log
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    out = build_dir() / f"level_expand-{digest}.so"
-    if out.exists():
-        return out
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed building {SOURCE.name}:\n{build_log}")
-    os.replace(tmp, out)
-    return out
+    the library path."""
+    return nvcc.build_library(SOURCE)
 
 
 def load():
     """Build (if needed) and load the K1 library once per process."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
+        lib = nvcc.load_library(SOURCE)
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.level_expand_launch.argtypes = [
             vp, vp, vp, vp, vp, vp,        # cand valid flat starts lens extra

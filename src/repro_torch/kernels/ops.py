@@ -1,20 +1,25 @@
-"""Public wrapper of kernel K1 with the reference's padding contract.
+"""Public wrappers of kernels K1 and K4.
 
-Counterpart of `repro/kernels/ops.py:18-35, 113-191`.  `level_expand`
-dispatches on where its tensors lie: CUDA tensors go to the hand-written
-kernel (`intersect.level_expand_cuda`), CPU tensors to the plain
-PyTorch version (`ref.level_expand_ref`).  It never falls back from one
-to the other: a build or launch failure raises.
+Counterpart of `repro/kernels/ops.py:18-35, 113-225`.  `level_expand`
+(K1, with the reference's padding contract) and `flash_attention` (K4,
+in the model's [B, S, heads, hd] layout) dispatch on where their
+tensors lie: CUDA tensors go to the hand-written kernels
+(`intersect.level_expand_cuda`, `flash_attention.flash_attention_cuda`),
+CPU tensors to the plain PyTorch versions (`ref.level_expand_ref`,
+`ref.flash_attention_ref`).  They never fall back from one to the
+other: a build or launch failure raises.
 
-`launches` counts kernel launches per mode (`mask`, `count`, `signed`);
-it moves only where the CUDA kernel is launched.
+`launches` counts kernel launches: K1 per mode (`mask`, `count`,
+`signed`), K4 as `flash`.  A count moves only where its CUDA kernel is
+launched.
 """
 from __future__ import annotations
 
 import torch
 
+from . import flash_attention as _k4
 from .intersect import level_expand_cuda, load
-from .ref import level_expand_ref
+from .ref import flash_attention_ref, level_expand_ref
 
 CAND_PAD = -1
 NBR_PAD = torch.iinfo(torch.int32).max
@@ -24,7 +29,8 @@ NBR_PAD = torch.iinfo(torch.int32).max
 # that runs past a row) is the same in both packages.
 MAX_BLOCK_L = 512
 
-launches = {"mask": 0, "count": 0, "signed": 0}
+K1_MODES = ("mask", "count", "signed")
+launches = {**dict.fromkeys(K1_MODES, 0), "flash": 0}
 
 
 def reset_launches() -> None:
@@ -37,6 +43,12 @@ def prepare(device) -> None:
     it); CPU tensors take the plain version, which needs nothing."""
     if torch.device(device).type == "cuda":
         load()
+
+
+def prepare_flash(device) -> None:
+    """Build and load K4 for tensors on `device`, as `prepare` does K1."""
+    if torch.device(device).type == "cuda":
+        _k4.load()
 
 
 def flat_gather_pad() -> int:
@@ -133,3 +145,61 @@ def level_expand(
                                      else "signed")
     launches[mode] += 1
     return out
+
+
+# ------------------------------------------------------------ attention ---
+def _route(device: torch.device) -> str:
+    """Which version of K4 runs for tensors on `device`: the kernel on a
+    card, the plain version on the CPU; anything else is refused."""
+    if device.type == "cuda":
+        return "kernel"
+    if device.type == "cpu":
+        return "plain"
+    raise ValueError(f"flash_attention runs on cuda or cpu, not {device}")
+
+
+def flash_attention_rows(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True) -> torch.Tensor:
+    """K4 in its own layout: q [BH, Sq, hd], k/v [BK, Sk, hd] with
+    BH % BK == 0; float32 or bfloat16, all of one dtype, contiguous, on
+    one device.  Returns o [BH, Sq, hd] in q's dtype."""
+    if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
+        raise ValueError(f"q/k/v must be 3-D, got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    BH, Sq, hd = q.shape
+    BK, Sk, _ = k.shape
+    if tuple(k.shape) != (BK, Sk, hd) or tuple(v.shape) != (BK, Sk, hd):
+        raise ValueError(f"k/v must be [BK, Sk, {hd}] alike, got "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    if min(BH, BK, Sq, Sk, hd) < 1 or BH % BK:
+        raise ValueError(f"need non-empty shapes and BH % BK == 0, got "
+                         f"BH={BH} BK={BK} Sq={Sq} Sk={Sk} hd={hd}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dtype not in _k4.DTYPES or t.dtype != q.dtype:
+            raise TypeError(f"{name} dtype {t.dtype}: q, k and v must share "
+                            f"one of {list(_k4.DTYPES)}")
+        if t.device != q.device:
+            raise ValueError(f"{name} on {t.device}, q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if _route(q.device) == "plain":
+        return flash_attention_ref(q, k, v, causal=causal)
+    out = _k4.flash_attention_cuda(q, k, v, causal=causal)
+    launches["flash"] += 1
+    return out
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    *, causal: bool = True) -> torch.Tensor:
+    """Model-layout wrapper: q [B, Sq, H, hd], k/v [B, Sk, K, hd] →
+    [B, Sq, H, hd].  (B, heads) fold into the kernel's row axis with the
+    H // K query heads of one KV group adjacent, so kernel row i reads
+    KV row i // (H // K): the KV heads are never copied per query head."""
+    B, Sq, H, hd = q.shape
+    _, Sk, K, _ = k.shape
+    # reshape may return a strided view (B == 1): make the rows dense
+    qf = q.transpose(1, 2).reshape(B * H, Sq, hd).contiguous()
+    kf = k.transpose(1, 2).reshape(B * K, Sk, hd).contiguous()
+    vf = v.transpose(1, 2).reshape(B * K, Sk, hd).contiguous()
+    of = flash_attention_rows(qf, kf, vf, causal=causal)
+    return of.reshape(B, H, Sq, hd).transpose(1, 2)

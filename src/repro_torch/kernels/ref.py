@@ -1,9 +1,9 @@
 """Plain PyTorch versions of the port's kernels (the `ref.py` contract).
 
-Counterpart of `repro/kernels/ref.py:28-71`.  These run wherever the
+Counterpart of `repro/kernels/ref.py:28-94`.  These run wherever the
 tensors lie and are what `kernels/ops.py` uses for CPU tensors; on the
-card they are only the yardstick the CUDA kernel is held against
-(`chip_smoke.py`, bit-equal).
+card they are only the yardstick the CUDA kernels are held against
+(`chip_smoke.py`: K1 bit-equal, K4 within the reference's tolerances).
 
 The reference's oracle gathers each predecessor window and
 broadcast-compares it with every candidate, an O(B·D·W) cube; at the
@@ -88,3 +88,27 @@ def level_expand_ref(
         return (mask.to(torch.int32) * w[None, :]).sum(
             dim=1, dtype=torch.int32)
     return mask.sum(dim=1, dtype=torch.int32)
+
+
+# ------------------------------------------------------------ attention ---
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True,
+                        sm_scale: float | None = None) -> torch.Tensor:
+    """Plain version of the flash kernel (kernels/csrc/flash_attention.cu):
+    softmax attention in fp32, output in q's dtype.
+
+    q [BH, Sq, hd]; k/v [BK, Sk, hd] with BH % BK == 0 (GQA groups:
+    query row i reads K/V row i // (BH // BK))."""
+    BH, Sq, hd = q.shape
+    g = BH // k.shape[0]
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(hd)
+    kf = k.float().repeat_interleave(g, dim=0)
+    vf = v.float().repeat_interleave(g, dim=0)
+    s = torch.einsum("bqh,bkh->bqk", q.float(), kf) * sm_scale
+    if causal:
+        qi = torch.arange(Sq, device=q.device)[:, None]
+        ki = torch.arange(k.shape[1], device=q.device)[None, :]
+        s = s.masked_fill(qi < ki, float("-inf"))
+    w = torch.softmax(s, dim=-1)
+    return torch.einsum("bqk,bkh->bqh", w, vf).to(q.dtype)

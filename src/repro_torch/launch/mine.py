@@ -123,7 +123,7 @@ def run(args, *, log=print) -> MineResult:
     before = dict(ops.launches)
     with timer() as t:
         state, out = matcher.count_partial()
-    launches = {k: n - before[k] for k, n in ops.launches.items()}
+    launches = {k: ops.launches[k] - before[k] for k in ops.K1_MODES}
     if args.mode == "naive":
         out = replace(out, count=out.count // plan.pattern.aut_count())
     log(f"[mine] count={out.count}  wall={t.seconds:.3f}s  "

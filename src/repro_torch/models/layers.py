@@ -1,0 +1,221 @@
+"""Dense neural building blocks (plain PyTorch; params are nested dicts).
+
+Counterpart of `repro/models/layers.py`, dense parts only:
+
+ * params are fp32 masters; `cast` converts activations/weights to the
+   compute dtype at use sites (mixed precision);
+ * norms and RoPE compute in fp32 and cast back to the input's dtype;
+ * attention is grouped-query: q [B, S, H, hd] over k/v [B, S, K, hd].
+
+Self-attention in prefill goes through kernel K4
+(`kernels.ops.flash_attention`) under the reference's dispatch rule
+(`sdpa_any`); decode attention is plain PyTorch, as it is plain XLA in
+the reference.  The projections, the MLP and the lm_head are
+`torch.matmul`, as the reference leaves them to XLA.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels import ops
+
+Params = dict
+
+
+def cast(x: torch.Tensor, dtype) -> torch.Tensor:
+    return x.to(dtype) if x.dtype != dtype else x
+
+
+def init_dense(gen: torch.Generator, d_in: int, d_out: int,
+               scale: float | None = None, device=None):
+    scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
+    w = torch.randn((d_in, d_out), generator=gen, device=device,
+                    dtype=torch.float32)
+    return {"w": w.mul_(scale)}
+
+
+def dense(p: Params, x: torch.Tensor, dtype) -> torch.Tensor:
+    return x @ cast(p["w"], dtype)
+
+
+def init_rmsnorm(d: int, device=None):
+    return {"scale": torch.ones((d,), dtype=torch.float32, device=device)}
+
+
+def rms_norm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    return head_rms_norm(x, p["scale"], eps)
+
+
+def head_rms_norm(x: torch.Tensor, scale: torch.Tensor,
+                  eps: float = 1e-6) -> torch.Tensor:
+    """RMS norm over the last axis in fp32, cast back to x's dtype (also
+    the per-head q/k norm of Qwen3's qk_norm: x [..., head_dim])."""
+    x32 = x.float()
+    var = x32.square().mean(dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps) * scale).to(x.dtype)
+
+
+# ------------------------------------------------------------------ RoPE
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x [..., S, H, hd]; positions [..., S] (int).  Rotates the two
+    halves of hd (not interleaved pairs), in fp32."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)                  # [hd/2]
+    ang = positions[..., None].float() * freqs               # [..., S, hd/2]
+    ang = ang[..., None, :]                                  # [..., S, 1, hd/2]
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ------------------------------------------------------------------ MLP
+def init_mlp(gen: torch.Generator, d: int, ff: int, device=None):
+    return {
+        "gate": init_dense(gen, d, ff, device=device),
+        "up": init_dense(gen, d, ff, device=device),
+        "down": init_dense(gen, ff, d, device=device),
+    }
+
+
+def swiglu_mlp(p: Params, x: torch.Tensor, dtype) -> torch.Tensor:
+    g = dense(p["gate"], x, dtype)
+    u = dense(p["up"], x, dtype)
+    return dense(p["down"], F.silu(g) * u, dtype)
+
+
+# ------------------------------------------------------------- attention
+def init_attention(gen: torch.Generator, cfg, device=None) -> Params:
+    d, H, K, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    p = {
+        "wq": init_dense(gen, d, H * hd, device=device),
+        "wk": init_dense(gen, d, K * hd, device=device),
+        "wv": init_dense(gen, d, K * hd, device=device),
+        "wo": init_dense(gen, H * hd, d, device=device),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones((hd,), dtype=torch.float32, device=device)
+        p["k_norm"] = torch.ones((hd,), dtype=torch.float32, device=device)
+    return p
+
+
+def _split_heads(x: torch.Tensor, n: int, hd: int) -> torch.Tensor:
+    return x.reshape(x.shape[:-1] + (n, hd))
+
+
+def _qkv(p, x, cfg, dtype, positions=None):
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = _split_heads(dense(p["wq"], x, dtype), H, hd)
+    k = _split_heads(dense(p["wk"], x, dtype), K, hd)
+    v = _split_heads(dense(p["wv"], x, dtype), K, hd)
+    if cfg.qk_norm:
+        q = head_rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = head_rms_norm(k, p["k_norm"], cfg.norm_eps)
+    if positions is not None:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _sdpa(q, k, v, *, causal: bool, q_offset: int = 0):
+    """q [B,Sq,H,hd], k/v [B,Sk,K,hd] — grouped-query attention; scores
+    in q's dtype, softmax in fp32, weights cast to v's dtype."""
+    B, Sq, H, hd = q.shape
+    _, Sk, K, _ = k.shape
+    G = H // K
+    q = q.reshape(B, Sq, K, G, hd)
+    scores = torch.einsum("bqkgh,bskh->bkgqs", q, k) / math.sqrt(hd)
+    scores = scores.float()
+    if causal:
+        qi = torch.arange(Sq, device=q.device)[:, None] + q_offset
+        ki = torch.arange(Sk, device=q.device)[None, :]
+        scores = scores.masked_fill(qi < ki, float("-inf"))
+    w = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgqs,bskh->bqkgh", w, v)
+    return out.reshape(B, Sq, H, hd)
+
+
+def _sdpa_chunked(q, k, v, *, causal: bool, chunk: int = 1024):
+    """Attention over query chunks of `chunk` rows, so the [Sq, Sk] score
+    matrix never fully materializes (a loop where the reference scans)."""
+    B, Sq, H, hd = q.shape
+    if Sq <= chunk:
+        return _sdpa(q, k, v, causal=causal)
+    if Sq % chunk:
+        raise ValueError(f"Sq={Sq} is not a multiple of chunk={chunk}")
+    return torch.cat([
+        _sdpa(q[:, i:i + chunk], k, v, causal=causal, q_offset=i)
+        for i in range(0, Sq, chunk)], dim=1)
+
+
+def flash_eligible(q, k) -> bool:
+    """The reference's rule for routing self-attention to the flash
+    kernel (`layers.py:254`): equal query and key lengths, a multiple
+    of 512, head dim at most 128."""
+    Sq, hd = q.shape[1], q.shape[3]
+    return Sq == k.shape[1] and Sq % 512 == 0 and hd <= 128
+
+
+def sdpa_any(q, k, v, *, causal: bool, q_chunk: int = 0,
+             flash: bool = False):
+    """Dispatch: flash kernel K4 (serving) → chunked → plain.  Shapes
+    outside `flash_eligible` take the plain path, as in the reference:
+    that is its semantics, not a fallback for a failed kernel."""
+    if flash and flash_eligible(q, k):
+        return ops.flash_attention(q, k, v, causal=causal)
+    if q_chunk:
+        return _sdpa_chunked(q, k, v, causal=causal, chunk=q_chunk)
+    return _sdpa(q, k, v, causal=causal)
+
+
+def attention(p: Params, x, cfg, dtype, *, causal=True, positions=None,
+              q_chunk: int = 0, flash: bool = False):
+    q, k, v = _qkv(p, x, cfg, dtype, positions)
+    out = sdpa_any(q, k, v, causal=causal, q_chunk=q_chunk, flash=flash)
+    B, S = x.shape[:2]
+    return dense(p["wo"], out.reshape(B, S, -1), dtype)
+
+
+# --------------------------------------------------- decode (KV cache) ----
+def attention_decode(p: Params, x, cache_k, cache_v, pos, cfg, dtype):
+    """One-token decode: x [B,1,d]; cache [B,S,K,hd]; pos an int OR a
+    per-row ``[B]`` int tensor (continuous batching: each slot of the
+    padded batch sits at its own sequence position).
+
+    Writes this token's K/V into the caches IN PLACE (the reference
+    returns updated copies; its caller donates the old ones) and returns
+    (out, cache_k, cache_v).  A write position past the cache is clamped
+    to its last cell, as `lax.dynamic_update_slice` clamps."""
+    B = x.shape[0]
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    S = cache_k.shape[1]
+    pos = torch.as_tensor(pos, dtype=torch.long, device=x.device)
+    per_row = pos.dim() == 1
+    posv = pos[:, None] if per_row else pos.expand(B, 1)
+    q, k, v = _qkv(p, x, cfg, dtype, posv)
+    at = posv[:, 0].clamp(0, S - 1)
+    rows = torch.arange(B, device=x.device)
+    cache_k[rows, at] = k[:, 0].to(cache_k.dtype)
+    cache_v[rows, at] = v[:, 0].to(cache_v.dtype)
+    G = H // K
+    qh = q.reshape(B, 1, K, G, hd)
+    scores = torch.einsum("bqkgh,bskh->bkgqs", qh,
+                          cast(cache_k, dtype)) / math.sqrt(hd)
+    scores = scores.float()
+    # [B,1,1,1,S] per-row causal horizon (broadcasts over heads/groups)
+    mask = (torch.arange(S, device=x.device)[None, :] <= posv)
+    scores = scores.masked_fill(~mask[:, None, None, None, :], float("-inf"))
+    w = torch.softmax(scores, dim=-1).to(dtype)
+    out = torch.einsum("bkgqs,bskh->bqkgh", w, cast(cache_v, dtype))
+    out = out.reshape(B, 1, H * hd)
+    return dense(p["wo"], out, dtype), cache_k, cache_v

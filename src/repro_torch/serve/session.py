@@ -1,0 +1,407 @@
+"""LMSession — the LM serving loop as a reusable, resumable object.
+
+Counterpart of `repro/serve/session.py` on one device (dense family):
+
+    session = LMSession("qwen3-1.7b", smoke=True, batch=4,
+                        prompt_len=64, gen=32, device="cpu",
+                        ckpt_dir=d, ckpt_every=8)
+    session.start(resume=True)       # prefill — or restore mid-decode
+    while session.remaining:
+        session.decode_steps(4)      # any step granularity
+    tokens = session.tokens_out()
+
+so the Gateway can interleave decode steps with other workloads
+(`LMDecodeWorkload` in gateway.py), and a preempted serving process
+restarts from the last `--ckpt-every` checkpoint (`start(resume=True)`
+reloads cache + tokens + step and continues decoding).
+
+Prefill runs self-attention through kernel K4 on a card
+(`models/layers.py::sdpa_any`); decode attention is plain PyTorch.
+
+CONTINUOUS BATCHING: the decode step takes a per-row position vector,
+so the padded batch's slots need not be in lockstep — `admit()`
+prefills ONE new sequence (batch-1 prefill) and scatters its cache row
+into a free slot mid-decode, and `evict(slot)` frees the row and
+returns its tokens.  Slot occupancy is surfaced through
+`repro_torch.obs` metrics (`lm.slots_active`, `lm.admitted`,
+`lm.evicted`) when a registry is attached.
+
+The checkpoint is {"cache", "tokens"} under step k via
+train.checkpoint (atomic rename + LATEST pointer); k is the number of
+decode steps already applied, so resumed decoding continues at position
+S + k (checkpoints cover the uniform lockstep mode; per-slot admission
+state is process-local).
+
+Departures from the reference, none of which changes a result: the
+session keeps only the weights cast for serving (the cast the
+reference repeats inside every jitted step), and the decode step
+updates the cache in place (the reference donates it).
+"""
+from __future__ import annotations
+
+import contextlib
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..kernels import ops
+from ..obs import get_tracer, timer
+
+
+def fake_prompts(cfg, B, S, seed: int, device="cpu"):
+    """Synthetic token prompts [B, S], uniform over the vocabulary, from
+    a CPU `torch.Generator` seeded with `seed` (the same tokens on every
+    device).  They differ from the reference's `jax.random` draws: tests
+    feed both packages the same numpy tokens instead."""
+    if cfg.family in ("encdec", "vlm"):
+        raise NotImplementedError(
+            f"{cfg.family} prompts are not ported yet (ROADMAP.md queue 1: "
+            "the remaining LM families)")
+    gen = torch.Generator().manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen)
+    return {"tokens": tokens.to(device)}
+
+
+def _pairs(dst, src):
+    """Matching leaves of two cache trees (nested dicts and lists)."""
+    if isinstance(dst, dict):
+        for k in dst:
+            yield from _pairs(dst[k], src[k])
+    elif isinstance(dst, list):
+        for d, s in zip(dst, src, strict=True):
+            yield from _pairs(d, s)
+    else:
+        yield dst, src
+
+
+def seed_cache(cache, prefill_cache, S):
+    """Copy prefill K/V (length S) into the front of the decode cache, in
+    place; returns `cache`.  The sequence axis is found structurally:
+    the first axis where the prefill leaf is shorter than the cache's."""
+    for dst, src in _pairs(cache, prefill_cache):
+        if src.shape == dst.shape:
+            dst.copy_(src)
+        elif dst.dim() >= 2 and src.dim() == dst.dim():
+            # K/V: [..., S, K, hd] into [..., max_seq, K, hd]
+            ax = next(i for i in range(dst.dim())
+                      if src.shape[i] != dst.shape[i])
+            dst.narrow(ax, 0, src.shape[ax]).copy_(src)
+    return cache
+
+
+def _scatter_row(dst, src, b: int):
+    """Write a batch-1 cache leaf into row `b` of the live batch-B leaf,
+    in place (continuous-batching admission).  The batch axis is located
+    structurally: the unique axis where src is 1 and dst is B; every
+    other axis matches because both are decode-shaped (same max_seq)."""
+    if src.shape == dst.shape:          # B == 1: the row IS the cache
+        dst.copy_(src)
+        return dst
+    ax = next(i for i in range(dst.dim())
+              if src.shape[i] == 1 and dst.shape[i] != 1)
+    dst.select(ax, b).copy_(src.squeeze(ax))
+    return dst
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class LMSession:
+    """One batched generation: prefill once, then stepwise greedy decode.
+
+    Parameters mirror `launch/serve.py`'s CLI.  `device` defaults to
+    ``"cuda"`` and raises without a card; pass ``"cpu"`` to run the
+    plain PyTorch path on the CPU.
+    """
+
+    def __init__(self, arch: str, *, smoke: bool = False, batch: int = 4,
+                 prompt_len: int = 64, gen: int = 32, max_seq: int = 0,
+                 device="cuda", seed: int = 0, ckpt_dir: str = "",
+                 ckpt_every: int = 0, metrics=None):
+        from ..configs import get_config, get_smoke_config
+
+        self.arch = arch
+        self.cfg = get_smoke_config(arch) if smoke else get_config(arch)
+        self.device = resolve_device(device)
+        self.B = batch
+        self.S = prompt_len
+        self.gen = gen
+        self.max_seq = max_seq or (prompt_len + gen)
+        self.seed = seed
+        self.ckpt_dir = ckpt_dir
+        self.ckpt_every = ckpt_every
+        self._metrics = metrics         # optional obs.MetricsRegistry
+        self._params = None
+        self._decode = None
+        self._cache = None
+        self._tokens = None             # [B, 1] int64 on the device
+        self._generated: list[np.ndarray] = []
+        self.step_i = 0                 # decode steps already applied
+        self.resumed_from: int | None = None
+        self.prefill_seconds = 0.0
+        self.decode_seconds = 0.0
+        # continuous-batching slot state (uniform lockstep until the
+        # first admit()/evict() call perturbs it)
+        self._pos = None                # np int64 [B]: next write position
+        self._active = [False] * batch  # admitted & not evicted
+        self._budget = [0] * batch      # decode steps granted per slot
+        self._taken = [0] * batch       # decode steps consumed per slot
+        self._slot_tokens = {}          # slot -> [int] generated tokens
+        self._prefill1 = None           # lazy batch-1 admission prefill
+        self.admitted = 0
+        self.evicted = 0
+        self.flash_launches = 0         # K4 launches by this session
+
+    @contextlib.contextmanager
+    def _counting_flash(self):
+        before = ops.launches["flash"]
+        try:
+            yield
+        finally:
+            self.flash_launches += ops.launches["flash"] - before
+
+    # ----------------------------------------------------------- lifecycle
+    def start(self, *, resume: bool = False) -> int | None:
+        """Prefill — or, with `resume=True` and a checkpoint present,
+        restore cache/tokens/step and skip the prefill entirely.
+        Returns the restored step (None for a fresh start)."""
+        from ..models import transformer as T
+        from .serve_step import cast_params_for_serving, make_decode
+
+        with get_tracer().span("lm.init", arch=self.arch, batch=self.B):
+            # weights, the decode step and K4's build (on a card) are
+            # cold-start costs; a leaf span keeps them attributable
+            self._params = cast_params_for_serving(
+                T.init(self.cfg, self.seed, self.device),
+                getattr(torch, self.cfg.dtype))
+            self._decode = make_decode(self.cfg, self.device)
+            ops.prepare_flash(self.device)
+            _sync(self.device)
+        restored = self._try_restore() if resume else None
+        if restored is None:
+            self._prefill()
+        else:
+            self.resumed_from = self.step_i = restored
+        self._init_slots(self.step_i)
+        return self.resumed_from
+
+    def _init_slots(self, at_step: int) -> None:
+        """Every row starts occupied, in lockstep at position S+step —
+        the uniform batch; admit()/evict() diverge from here."""
+        self._pos = np.full(self.B, self.S + at_step, np.int64)
+        self._active = [True] * self.B
+        self._budget = [self.gen] * self.B
+        self._taken = [at_step] * self.B
+        toks = self._tokens.cpu().numpy()
+        self._slot_tokens = {b: [int(toks[b, 0])] for b in range(self.B)}
+        self._slots_gauge()
+
+    def _slots_gauge(self) -> None:
+        if self._metrics is not None:
+            self._metrics.gauge("lm.slots_active").set(sum(self._active))
+
+    def _prefill(self) -> None:
+        from ..models import transformer as T
+        from .serve_step import make_prefill
+
+        with get_tracer().span("lm.build", batch=self.B,
+                               prompt_len=self.S):
+            batch = fake_prompts(self.cfg, self.B, self.S, self.seed,
+                                 self.device)
+            prefill = make_prefill(self.cfg, self.device, q_chunk=0)
+        with get_tracer().span("lm.prefill", arch=self.arch, batch=self.B,
+                               prompt_len=self.S), timer() as t, \
+                self._counting_flash():
+            logits, prefill_cache = prefill(self._params, batch)
+            _sync(self.device)
+        self.prefill_seconds = t.seconds
+        with get_tracer().span("lm.cache_init", batch=self.B,
+                               max_seq=self.max_seq):
+            cache = T.init_cache(self.cfg, self.B, self.max_seq,
+                                 device=self.device)
+            self._cache = seed_cache(cache, prefill_cache, self.S)
+        self._tokens = logits.argmax(dim=-1)[:, None]
+        self._generated = [self._tokens.cpu().numpy().astype(np.int32)]
+
+    def _try_restore(self) -> int | None:
+        from ..models import transformer as T
+        from ..train import checkpoint as ckpt
+
+        if not self.ckpt_dir:
+            return None
+        step = ckpt.latest_step(self.ckpt_dir)
+        if step is None:
+            return None
+        tree_like = {
+            "cache": T.init_cache(self.cfg, self.B, self.max_seq,
+                                  device="meta"),
+            "tokens": torch.empty((self.B, 1), dtype=torch.long,
+                                  device="meta"),
+        }
+        tree, step = ckpt.restore(self.ckpt_dir, tree_like, step=step,
+                                  device=self.device)
+        self._cache = tree["cache"]
+        self._tokens = tree["tokens"]
+        # generation up to `step` happened in the previous process;
+        # tokens_out() covers the resumed suffix only
+        self._generated = [self._tokens.cpu().numpy().astype(np.int32)]
+        return step
+
+    # -------------------------------------------------------------- decode
+    @property
+    def remaining(self) -> int:
+        """Decode steps still owed to the hungriest live slot (``gen -
+        step_i`` until admissions diverge budgets)."""
+        if self._pos is None:           # start() not called yet
+            return max(self.gen - self.step_i, 0)
+        live = [self._budget[b] - self._taken[b]
+                for b in range(self.B)
+                if self._active[b] and self._taken[b] < self._budget[b]]
+        return max(live, default=0)
+
+    def decode_steps(self, k: int) -> int:
+        """Run up to `k` greedy decode steps (bounded by `remaining`);
+        checkpoints cache+tokens every `ckpt_every` steps.  Returns the
+        number of steps actually run; the device has finished them when
+        it returns, so the caller's timing covers real device work.
+
+        Every step advances the WHOLE padded batch one token at each
+        row's own position (rows past their budget still compute — the
+        price of a static batch shape — but their tokens are not
+        recorded, and their cache rows are re-seeded on admit())."""
+        if self._decode is None:
+            raise RuntimeError("LMSession.start() must run first")
+        from ..train import checkpoint as ckpt
+
+        n = min(max(k, 0), self.remaining)
+        if n == 0:
+            return 0
+        with get_tracer().span("lm.decode", arch=self.arch, steps=n,
+                               at_step=self.step_i), timer() as t, \
+                self._counting_flash():
+            for _ in range(n):
+                pos = torch.from_numpy(self._pos).to(self.device)
+                logits, self._cache = self._decode(
+                    self._params, self._tokens, self._cache, pos)
+                self._tokens = logits.argmax(dim=-1)[:, None]
+                toks = self._tokens.cpu().numpy().astype(np.int32)
+                self._generated.append(toks)
+                for b in range(self.B):
+                    if self._active[b] and self._taken[b] < self._budget[b]:
+                        self._slot_tokens[b].append(int(toks[b, 0]))
+                        self._taken[b] += 1
+                # dead rows park at the last cache cell (their writes
+                # are discarded on the next admission)
+                self._pos = np.minimum(self._pos + 1, self.max_seq - 1)
+                self.step_i += 1
+                if (self.ckpt_dir and self.ckpt_every
+                        and self.step_i % self.ckpt_every == 0):
+                    ckpt.save(self.ckpt_dir, self.step_i,
+                              {"cache": self._cache, "tokens": self._tokens})
+            _sync(self.device)
+        self.decode_seconds += t.seconds
+        return n
+
+    # ------------------------------------------------ continuous batching
+    def slots(self) -> dict:
+        """Occupancy snapshot: slot -> {active, pos, taken, budget}."""
+        return {b: {"active": self._active[b],
+                    "pos": None if self._pos is None else int(self._pos[b]),
+                    "taken": self._taken[b],
+                    "budget": self._budget[b]}
+                for b in range(self.B)}
+
+    def admit(self, *, seed: int | None = None,
+              gen: int | None = None) -> int:
+        """Join ONE new sequence to the running batch: prefill it at
+        batch 1, scatter its K/V rows into the first free slot's cache
+        rows, and start it at position S — the other slots' tokens are
+        untouched (their rows are never written).  Returns the slot
+        index; raises when no slot is free."""
+        if self._decode is None:
+            raise RuntimeError("LMSession.start() must run first")
+        free = [b for b in range(self.B) if not self._active[b]]
+        if not free:
+            raise RuntimeError(
+                f"no free slot (batch={self.B} all active) — evict first")
+        slot = free[0]
+        if seed is None:
+            seed = self.seed + 1009 * (self.admitted + 1)
+        with get_tracer().span("lm.admit", slot=slot, seed=seed), \
+                timer() as t, self._counting_flash():
+            row_cache, token = self._prefill_one(seed)
+            for dst, src in _pairs(self._cache, row_cache):
+                _scatter_row(dst, src, slot)
+            self._tokens = self._tokens.clone()
+            self._tokens[slot, 0] = token
+            _sync(self.device)
+        self.prefill_seconds += t.seconds
+        self._pos[slot] = self.S
+        self._active[slot] = True
+        self._budget[slot] = self.gen if gen is None else max(int(gen), 0)
+        self._taken[slot] = 0
+        self._slot_tokens[slot] = [int(token)]
+        self.admitted += 1
+        if self._metrics is not None:
+            self._metrics.counter("lm.admitted").inc()
+        self._slots_gauge()
+        return slot
+
+    def evict(self, slot: int) -> np.ndarray:
+        """Free a slot and return its generated tokens (prefill argmax
+        first, then one per recorded decode step)."""
+        if not (0 <= slot < self.B) or not self._active[slot]:
+            raise ValueError(f"slot {slot} is not active")
+        out = np.asarray(self._slot_tokens[slot], np.int32)
+        self._active[slot] = False
+        self.evicted += 1
+        if self._metrics is not None:
+            self._metrics.counter("lm.evicted").inc()
+        self._slots_gauge()
+        return out
+
+    def _prefill_one(self, seed: int):
+        """Batch-1 prefill for admissions: returns (decode-shaped cache
+        with batch 1, first generated token).  The prefill step is built
+        once and reused for every admission."""
+        from ..models import transformer as T
+        from .serve_step import make_prefill
+
+        if self._prefill1 is None:
+            self._prefill1 = make_prefill(self.cfg, self.device, q_chunk=0)
+        batch = fake_prompts(self.cfg, 1, self.S, seed, self.device)
+        logits, prefill_cache = self._prefill1(self._params, batch)
+        cache1 = T.init_cache(self.cfg, 1, self.max_seq, device=self.device)
+        cache1 = seed_cache(cache1, prefill_cache, self.S)
+        token = int(logits.argmax(dim=-1)[0])
+        return cache1, token
+
+    # ----------------------------------------------------------- reporting
+    def tokens_out(self) -> np.ndarray:
+        """[B, steps+1] generated tokens (since resume, when resumed)."""
+        return np.concatenate(self._generated, axis=1)
+
+    def metrics(self) -> dict:
+        steps = self.step_i - (self.resumed_from or 0)
+        tok_s = (steps * self.B / self.decode_seconds
+                 if self.decode_seconds > 0 else 0.0)
+        return {
+            "arch": self.arch,
+            "batch": self.B,
+            "prompt_len": self.S,
+            "steps_done": self.step_i,
+            "steps_total": self.gen,
+            "resumed_from": self.resumed_from,
+            "prefill_seconds": self.prefill_seconds,
+            "decode_seconds": self.decode_seconds,
+            "decode_tok_s": tok_s,
+            "ms_per_step": (1e3 * self.decode_seconds / steps
+                            if steps else 0.0),
+            "admitted": self.admitted,
+            "evicted": self.evicted,
+            "slots_active": sum(self._active),
+            "flash_launches": self.flash_launches,
+        }

@@ -4,8 +4,9 @@ is bit-equal to the reference's oracle `repro.kernels.ref.
 level_expand_ref` on the same random CSR windows, in mask, count and
 signed mode, and once to the reference's Pallas kernel in interpret mode.
 
-The CUDA kernel itself runs only on a card: the `cuda`-marked test holds
-it against the plain version there and skips elsewhere.  No tolerance:
+The CUDA kernel itself runs only on a card: the `cuda`-marked test in
+tests/test_torch_cuda_kernels.py holds it against the plain version
+there and skips elsewhere.  No tolerance:
 masks are bools and counts int32.
 """
 import jax.numpy as jnp
@@ -18,7 +19,7 @@ from repro.kernels import ops as ref_ops
 from repro.kernels import ref as ref_ref
 
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import bs_iters, level_expand_ref, segment_member
+from repro_torch.kernels.ref import bs_iters, segment_member
 
 torch.set_num_threads(1)
 
@@ -145,7 +146,8 @@ def test_cpu_calls_do_not_count_launches():
     cand, flat, starts, lens, extra, valid = _csr_windows(0)
     ops.level_expand(*_t(cand, flat, starts, lens, extra, valid),
                      dirs=(1, -1, 0), count=True, window=50)
-    assert ops.launches == {"mask": 0, "count": 0, "signed": 0}
+    assert ops.launches == {"mask": 0, "count": 0, "signed": 0,
+                            "flash": 0}
 
 
 @pytest.mark.parametrize("bad", ["dtype", "contiguity", "shape", "extra",
@@ -165,25 +167,3 @@ def test_wrapper_rejects_bad_inputs(bad):
         kw["neg_from"] = 3
     with pytest.raises((TypeError, ValueError)):
         ops.level_expand(cand, flat, starts, lens, extra, valid, **kw)
-
-
-@pytest.mark.cuda
-def test_cuda_kernel_matches_plain_version():
-    """On a card: K1 built with nvcc is bit-equal to the plain version in
-    every mode, and each launch is counted."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (K1 is CUDA C++; no CPU mode)")
-    cand, flat, starts, lens, extra, valid = [
-        None if a is None else a.cuda()
-        for a in _t(*_csr_windows(0, B=300, D=130))]
-    ops.reset_launches()
-    for kw in (dict(dirs=(1, -1, 0), count=False),
-               dict(dirs=(1, -1, 0), count=True),
-               dict(dirs=(), count=True, neg_from=64)):
-        ex = extra if kw["dirs"] else None
-        got = ops.level_expand(cand, flat, starts, lens, ex, valid,
-                               window=50, **kw)
-        want = level_expand_ref(cand, flat, starts, lens, ex, valid,
-                                window=50, **kw)
-        assert torch.equal(got, want)
-    assert ops.launches == {"mask": 1, "count": 1, "signed": 1}
