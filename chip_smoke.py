@@ -7,9 +7,10 @@ Needs one CUDA card and `nvcc`; exits non-zero without them, and when
 run outside a checkout of this repository.  Phases, one line each:
 
  1. the card's name and power limit (`nvidia-smi`), then K1
-    (`src/repro_torch/kernels/csrc/level_expand.cu`) and K4
-    (`csrc/flash_attention.cu`) built with nvcc for sm_90a from the
-    checkout's sources, one nvcc per source, started together;
+    (`src/repro_torch/kernels/csrc/level_expand.cu`), K2/K3
+    (`csrc/membership.cu`) and K4 (`csrc/flash_attention.cu`) built with
+    nvcc for sm_90a from the checkout's sources, one nvcc per source,
+    started together;
  2. K1 against its plain PyTorch version on the card, bit-equal, on
     windows of the wiki-vote-syn CSR at main-path shapes (B = 32768,
     D ∈ {128, 1024, 1917}, P ∈ {1, 2, 3}) in mask, count and signed mode;
@@ -46,16 +47,35 @@ run outside a checkout of this repository.  Phases, one line each:
     tensors (the library yardstick; the port never calls it) and the
     card's bound.
 
+10. K2 and K3 (`csrc/membership.cu`) against their plain PyTorch
+    versions on the card, bit-equal: the reference test's shapes in
+    int32 and int16, rows longer than one shared tile, ragged
+    `cand_valid` / `nbr_len` (empty rows included), shared-tile widths
+    and block sizes that must not change the result, duplicate
+    candidates;
+11. K2's and K3's time per launch at the reference benchmark's shapes
+    and at B = 65,536, D = L = 1,024, beside the plain version's and the
+    card's bound;
+12. the per-predecessor composition of `benchmarks/kernel_intersect.py`
+    (a gathered window and one K2 launch per predecessor, K3 for the
+    last one in count mode) against the fused K1, bit-equal, both timed;
+13. the query engine on small-rmat: duplicate P1 tickets coalesced into
+    one execution, an isomorphic re-query served from the cache, a count
+    preempted after every dispatch equal to the uninterrupted one.
+
 Every count of phases 3–4 sets K1's launch counters to 0 just before it
 and reads them just after; a kernel-path count must launch exactly the
 modes its plan needs, a portable-path count none.  In phase 8 K4's
 counter is set to 0 just before each batch prefill, admission and
 decode call and read just after: n_layers (28) launches per prefill
 and per admission, none in decode.
+In phase 12 K2's and K3's counters are set to 0 just before the
+composed runs and read just after; in phase 13 K1's, around each round
+of the engine, must show exactly the plan's modes.
 
-Counts are integers and every comparison of phases 2–6 is exact (no
-tolerance).  The last two lines are the kernels record and the device
-record (JSON).
+Counts are integers and every comparison of phases 2–6 and 10–13 is
+exact (no tolerance).  The last two lines are the kernels record (K1's
+three modes, K2, K3, K4) and the device record (JSON).
 """
 from __future__ import annotations
 
@@ -391,6 +411,7 @@ def graph_phases(card) -> list:
     from repro_torch.kernels import intersect, ops
     from repro_torch.kernels.ref import level_expand_ref
     from repro_torch.launch import mine
+    from repro_torch.query.cache import plan_for
 
     # ---- 2: K1 vs plain, bit-equal
     wiki = get_dataset("wiki-vote-syn")
@@ -480,7 +501,7 @@ def graph_phases(card) -> list:
     for mode, iep in (("graphpi", False), ("graphpi", True),
                       ("graphzero", True), ("naive", False),
                       ("graphzero", False)):
-        config, plan = mine.plan_for(house, stats, mode=mode, use_iep=iep)
+        config, plan = plan_for(house, stats, mode=mode, use_iep=iep)
         if repr(plan) in plans:
             log(f"phase 4: P1 {mode}{' iep' if iep else ''}: same plan as "
                 f"counted above")
@@ -501,7 +522,7 @@ def graph_phases(card) -> list:
         check(cnt == WIKI_P1, f"{what}: {cnt} != {WIKI_P1}")
     # The portable path takes ~7x the kernel path's time for a whole P1
     # count here, so the two paths meet on a slice of the roots instead.
-    config, plan = mine.plan_for(house, stats, mode="graphpi")
+    config, plan = plan_for(house, stats, mode="graphpi")
     part = {}
     for path, cfg in cfgs.items():
         what = f"wiki-vote-syn P1 graphpi roots {WIKI_ROOTS} {path}"
@@ -524,8 +545,8 @@ def graph_phases(card) -> list:
     p1, plans = {}, set()
     for mode in ("graphpi", "graphzero", "naive"):
         for iep in (False, True):
-            config, plan = mine.plan_for(house, sstats, mode=mode,
-                                         use_iep=iep)
+            config, plan = plan_for(house, sstats, mode=mode,
+                                    use_iep=iep)
             if repr(plan) in plans:
                 continue          # --use-iep folded no tail: counted above
             plans.add(repr(plan))
@@ -540,6 +561,7 @@ def graph_phases(card) -> list:
                     f"max_needed={res.max_needed} K1 launches={launches}")
     check(len(set(p1.values())) == 1,
           f"small-rmat P1 counts disagree across plans/paths: {p1}")
+    RESULTS["small-rmat P1"] = next(iter(p1.values()))
 
     # ---- 5: launch counters of the named main-path runs
     for mode in ("mask", "count", "signed"):
@@ -832,22 +854,362 @@ def lm_phases(card) -> list:
              "launches": launches, "max_abs_err": max(errs), **times}]
 
 
-def build_kernels() -> None:
-    """Phase 1: build K1 and K4 from the checkout's sources, one nvcc
-    per source, both started together."""
-    from concurrent.futures import ThreadPoolExecutor
+# ------------------------------------------------------ phases 10-12 --
+# The reference kernel test's shapes (tests/test_kernels.py:26-34), then
+# rows longer than one shared tile (membership.TILE = 4,096 int32).
+MEMBERSHIP_SHAPES = [(1, 1, 1), (3, 5, 7), (8, 128, 128), (16, 256, 384),
+                     (9, 130, 200), (2, 300, 64), (32, 64, 512),
+                     (4, 700, 9000), (1, 1, 5000)]
+# benchmarks/kernel_intersect.py:28-29 (B, D, L), then one executor-scale
+# shape: a wiki-vote-syn level's frontier rows and window.
+MEMBERSHIP_TIMED = [(256, 128, 128), (512, 128, 256), (1024, 256, 512),
+                    (4096, 128, 128), (65536, 1024, 1024)]
+# benchmarks/kernel_intersect.py:81-82 (B, D, P, L), then 65,536 x 1,024
+# with P = 2.
+LEVEL_SHAPES = [(256, 128, 3, 128), (512, 128, 4, 256),
+                (1024, 256, 2, 512), (65536, 1024, 2, 1024)]
+RESULTS: dict = {}               # counts one phase hands to a later one
 
-    from repro_torch.kernels import flash_attention, intersect, nvcc
+
+def sorted_rows(gen, rows, L):
+    """[rows, L] strictly increasing int32 rows on the card: cumulative
+    sums of gaps drawn from 1..19 (mean 10, so values reach ~10·L, as the
+    reference benchmark's rows drawn from range(10·L) do)."""
+    import torch
+
+    gaps = torch.randint(1, 20, (rows, L), generator=gen, device=DEVICE,
+                         dtype=torch.int32)
+    return gaps.cumsum(1, dtype=torch.int32)
+
+
+def rows_case(gen, B, D, L, dtype=None):
+    """Candidates in [0, 10·L] and sorted rows, optionally cast."""
+    import torch
+
+    cand = torch.randint(0, 10 * L + 1, (B, D), generator=gen,
+                         device=DEVICE, dtype=torch.int32)
+    nbr = sorted_rows(gen, B, L)
+    if dtype is not None:
+        cand, nbr = cand.to(dtype), nbr.to(dtype)
+    return cand, nbr
+
+
+def membership_plain(cand, nbr, count):
+    from repro_torch.kernels.ref import (intersect_count_plain,
+                                         membership_ref_searchsorted)
+
+    return (intersect_count_plain(cand, nbr) if count
+            else membership_ref_searchsorted(cand, nbr))
+
+
+def check_membership(gen, errs) -> int:
+    """Phase 10: K2 and K3 through `ops.sorted_membership` /
+    `ops.intersect_count` against their plain versions on the same
+    (widened, padded) inputs, bit-equal."""
+    import torch
+
+    from repro_torch.kernels import membership, ops
+
+    def one(what, cand, nbr, **kw):
+        c32, n32 = ops._stacked_rows(cand, nbr, kw.get("cand_valid"),
+                                     kw.get("nbr_len"), (1, 1, 1))
+        for count, k in ((False, "K2"), (True, "K3")):
+            fn = ops.intersect_count if count else ops.sorted_membership
+            got = fn(cand, nbr, **kw)
+            want = membership_plain(c32, n32, count)
+            torch.cuda.synchronize()
+            err = (got.to(torch.int64) - want.to(torch.int64)).abs()
+            errs[k].append(float(err.max()) if err.numel() else 0.0)
+            check(torch.equal(got, want), f"{k} != plain on {what}")
+        return 1
+
+    n = 0
+    for B, D, L in MEMBERSHIP_SHAPES:
+        for dtype in ((torch.int32, torch.int16) if L <= 512
+                      else (torch.int32,)):
+            n += one(f"{(B, D, L)} {dtype}", *rows_case(gen, B, D, L, dtype))
+    for B, D, L in ((6, 100, 150), (5, 333, 9000), (8, 128, 128)):
+        cand, nbr = rows_case(gen, B, D, L)
+        nbr_len = torch.randint(0, L + 1, (B,), generator=gen, device=DEVICE)
+        nbr_len[0] = 0
+        if B == 8:
+            nbr_len.zero_()                          # every row empty
+        valid = torch.rand((B, D), generator=gen, device=DEVICE) < 0.7
+        n += one(f"ragged {(B, D, L)}", cand, nbr, cand_valid=valid,
+                 nbr_len=nbr_len)
+    cand, nbr = rows_case(gen, 12, 200, 300)
+    for bb, bd, bl in ((8, 128, 128), (8, 128, 256), (16, 256, 128)):
+        n += one(f"blocks {(bb, bd, bl)}", cand, nbr, block_b=bb,
+                 block_d=bd, block_l=bl)
+    for tile in (1, 7, 64, 4096):                    # rows over 1..300 tiles
+        for count in (False, True):
+            got = membership.membership_cuda(cand, nbr, count=count,
+                                             tile=tile)
+            check(torch.equal(got, membership_plain(cand, nbr, count)),
+                  f"K2/K3 tile {tile} count={count} != plain")
+        n += 1
+    cand = torch.tensor([[5, 5, 5, 7]], dtype=torch.int32, device=DEVICE)
+    nbr = torch.tensor([[1, 5, 9, 2**31 - 1]], dtype=torch.int32,
+                       device=DEVICE)
+    n += one("duplicate candidates", cand, nbr)
+    check(int(ops.intersect_count(cand, nbr)[0]) == 3,
+          "duplicate candidates not counted separately")
+    return n
+
+
+def membership_bound(B, D, L, count):
+    """Least time for one K2/K3 launch: cand and nbr read once (4 B per
+    entry) and the output written once (1 B per candidate, or 4 B per
+    row), over HBM bandwidth; against a binary search of each candidate,
+    ceil(log2(L + 1)) compares, over the cores' rate."""
+    import math
+
+    nbytes = 4 * B * D + 4 * B * L + (4 * B if count else B * D)
+    compares = B * D * math.ceil(math.log2(L + 1))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = compares / CORE_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def time_membership(gen, card, errs) -> dict:
+    """Phase 11: K2 and K3 per launch (CUDA events, 3 warm-up launches,
+    then 20; the plain version over 5) at the reference benchmark's
+    shapes and the executor-scale shape, beside the card's bound.
+    Returns the last shape's numbers per kernel."""
+    import torch
+
+    from repro_torch.kernels.membership import membership_cuda
+
+    out = {}
+    for B, D, L in MEMBERSHIP_TIMED:
+        cand, nbr = rows_case(gen, B, D, L)
+        for count, k in ((False, "K2"), (True, "K3")):
+            got = membership_cuda(cand, nbr, count=count)
+            want = membership_plain(cand, nbr, count)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want), f"{k} != plain at {(B, D, L)}")
+            errs[k].append(0.0)
+            ms = time_ms(lambda: membership_cuda(cand, nbr, count=count))
+            plain_ms = time_ms(lambda: membership_plain(cand, nbr, count),
+                               iters=5)
+            bound_ms, bound_by = membership_bound(B, D, L, count)
+            log(f"phase 11: {k} B={B} D={D} L={L}: ms={ms:.4f} "
+                f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} "
+                f"({bound_by}) on {card}")
+            out[k] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                      "bound_by": bound_by}
+    return out
+
+
+def level_case(gen, B, D, P, L, E=2):
+    """benchmarks/kernel_intersect.py's level data, built on the card: P·B
+    strictly increasing rows of L entries in one flat array (plus the
+    flat_gather_pad sentinels), row lengths cut by up to L/4 so the
+    windows' ragged tails matter, candidates and prefix values in
+    [0, 10·L], comparisons (>, !=)."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    flat = torch.cat([sorted_rows(gen, P * B, L).reshape(-1),
+                      torch.full((ops.flat_gather_pad(),), ops.NBR_PAD,
+                                 dtype=torch.int32, device=DEVICE)])
+    starts = (torch.arange(P * B, device=DEVICE, dtype=torch.int32)
+              * L).reshape(P, B)
+    lens = (L - torch.randint(0, L // 4 + 1, (P, B), generator=gen,
+                              device=DEVICE)).to(torch.int32)
+    cand = torch.randint(0, 10 * L + 1, (B, D), generator=gen,
+                         device=DEVICE, dtype=torch.int32)
+    extra = torch.randint(0, 10 * L + 1, (B, E), generator=gen,
+                          device=DEVICE, dtype=torch.int32)
+    dirs = tuple(1 if e % 2 == 0 else 0 for e in range(E))
+    return cand, flat, starts, lens, extra, dirs
+
+
+def per_pred(cand, flat, starts, lens, extra, dirs, L, count):
+    """benchmarks/kernel_intersect.py:108-181 `per_pred` in torch: one
+    mask per comparison, then per predecessor a [B, L] window gathered
+    from the flat array and one K2 launch with nbr_len = lens[p]; in
+    count mode the last predecessor is one K3 launch over the candidates
+    that survived (cand_valid), which is the row count."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    mask = torch.ones(cand.shape, dtype=torch.bool, device=cand.device)
+    for e, d in enumerate(dirs):
+        ev = extra[:, e][:, None]
+        mask &= (cand > ev) if d > 0 else (cand < ev) if d < 0 \
+            else (cand != ev)
+    pos = torch.arange(L, dtype=torch.int32, device=cand.device)
+    P = starts.shape[0]
+    for p in range(P):
+        window = flat[starts[p][:, None] + pos[None, :]]
+        if count and p == P - 1:
+            return ops.intersect_count(cand, window, cand_valid=mask,
+                                       nbr_len=lens[p])
+        mask &= ops.sorted_membership(cand, window, nbr_len=lens[p])
+    return mask
+
+
+def per_pred_phase(gen, card) -> dict:
+    """Phase 12: the per-predecessor composition (K2/K3) against the
+    fused K1 at the reference benchmark's level shapes and 65,536 x 1,024,
+    P = 2: bit-equal masks, row counts equal to K1's count mode.  K2's and
+    K3's counters are set to 0 just before these runs and read just after
+    (they are the path K2 and K3 serve); then both are timed."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    cases = [(shape, level_case(gen, *shape)) for shape in LEVEL_SHAPES]
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    for (B, D, P, L), (cand, flat, starts, lens, extra, dirs) in cases:
+        m = per_pred(cand, flat, starts, lens, extra, dirs, L, False)
+        c = per_pred(cand, flat, starts, lens, extra, dirs, L, True)
+        fm = ops.level_expand(cand, flat, starts, lens, extra, dirs=dirs,
+                              window=L)
+        fc = ops.level_expand(cand, flat, starts, lens, extra, dirs=dirs,
+                              window=L, count=True)
+        torch.cuda.synchronize()
+        check(torch.equal(m, fm), f"per-pred mask != K1 at {(B, D, P, L)}")
+        check(torch.equal(c, fc), f"per-pred count != K1 at {(B, D, P, L)}")
+        check(torch.equal(c, m.sum(dim=1, dtype=torch.int32)),
+              f"per-pred count != its mask's row sums at {(B, D, P, L)}")
+    launches = {k: ops.launches[k] for k in ("membership",
+                                             "intersect_count")}
+    want = {"membership": sum(2 * P - 1 for _, _, P, _ in LEVEL_SHAPES),
+            "intersect_count": len(LEVEL_SHAPES)}
+    log(f"phase 12: per-pred == fused K1 (mask and count) at "
+        f"{len(LEVEL_SHAPES)} shapes; K2/K3 launches {launches}")
+    check(launches == want, f"K2/K3 launches {launches} != {want}")
+    for (B, D, P, L), (cand, flat, starts, lens, extra, dirs) in cases:
+        args = (cand, flat, starts, lens, extra, dirs, L)
+        t = {name: time_ms(fn, iters=10) for name, fn in (
+            ("per-pred mask", lambda: per_pred(*args, False)),
+            ("per-pred count", lambda: per_pred(*args, True)),
+            ("fused mask", lambda: ops.level_expand(
+                cand, flat, starts, lens, extra, dirs=dirs, window=L)),
+            ("fused count", lambda: ops.level_expand(
+                cand, flat, starts, lens, extra, dirs=dirs, window=L,
+                count=True)))}
+        log(f"phase 12: B={B} D={D} P={P} L={L} E={len(dirs)}: "
+            + " ".join(f"{k}={v:.4f}ms" for k, v in t.items())
+            + f" per-pred/fused mask {t['per-pred mask'] / t['fused mask']:.2f}x"
+            f" count {t['per-pred count'] / t['fused count']:.2f}x on {card}")
+    return launches
+
+
+def membership_phases(card) -> list:
+    """Phases 10-12; returns K2's and K3's kernel records."""
+    import torch
+
+    gen = torch.Generator(device=DEVICE).manual_seed(13)
+    errs = {"K2": [], "K3": []}
+    t0 = time.perf_counter()
+    n = check_membership(gen, errs)
+    log(f"phase 10: K2 and K3 == plain versions on {n} cases in "
+        f"{time.perf_counter() - t0:.1f}s")
+    times = time_membership(gen, card, errs)
+    launches = per_pred_phase(gen, card)
+    return [{"name": name, "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/membership.cu",
+             "replaces": f"src/repro/kernels/intersect.py:{line}",
+             "launches": launches[name], "max_abs_err": max(errs[k]),
+             **times[k], "library_ms": None}
+            for name, k, line in (("membership", "K2", 307),
+                                  ("intersect_count", "K3", 338))]
+
+
+# ------------------------------------------------------------ phase 13 --
+def engine_phase(card) -> None:
+    """Phase 13: the query engine on the card, small-rmat P1: duplicate
+    tickets of one class resolve in one execution, an isomorphic re-query
+    is a cache hit that searches nothing, a count preempted after every
+    dispatch resumes to the uninterrupted count; K1's counters are set to
+    0 just before each run and must show exactly the plan's modes."""
+    import torch
+
+    from repro_torch.configs.graphpi import get_dataset, get_pattern
+    from repro_torch.core.executor import ExecutorConfig, auto_buckets
+    from repro_torch.kernels import ops
+    from repro_torch.query import (QueryEngine, QueryRequest,
+                                   relabeled_variant)
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        libs = list(pool.map(lambda k: k.build(),
-                             (intersect, flash_attention)))
-    intersect.load()
-    flash_attention.load()
+    small = get_dataset("small-rmat")
+    cfg = ExecutorConfig(capacity=1 << 15, degree_buckets=auto_buckets(small))
+    house = get_pattern("P1")
+    want = RESULTS["small-rmat P1"]
+
+    def serve(engine, what, patterns):
+        tickets = [engine.enqueue(QueryRequest(p)) for p in patterns]
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        rounds = 0
+        while not all(t.done for t in tickets):
+            engine.run_pending()
+            rounds += 1
+            check(rounds <= 100000, f"{what}: no end")
+        torch.cuda.synchronize()
+        launches = dict(ops.launches)
+        entry = next(e for e in engine.cache.entries()
+                     if e.canon_key == tickets[0].result.canon_key)
+        check_launches(what, launches, entry.plan, True)
+        counts = {t.result.count for t in tickets}
+        check(counts == {want}, f"{what}: counts {counts} != {want}")
+        log(f"phase 13: {what}: count={want} rounds={rounds} "
+            f"executions={engine.executions} coalesced={engine.coalesced} "
+            f"preemptions={engine.preemptions} cache={engine.cache.stats.hits}"
+            f" hits/{engine.cache.stats.n_searches} searches "
+            f"K1 launches={launches}")
+        return tickets, rounds
+
+    eng = QueryEngine(small, cfg=cfg, device=DEVICE)
+    n_dup = 4
+    ts, _ = serve(eng, f"{n_dup} duplicate P1 tickets", [house] + [
+        relabeled_variant(house, seed=s) for s in range(1, n_dup)])
+    check(eng.executions == 1 and eng.coalesced == n_dup - 1
+          and not ts[0].result.cache_hit
+          and all(t.result.coalesced and t.result.cache_hit for t in ts[1:]),
+          "duplicate tickets were not coalesced into one execution")
+    searches = eng.cache.stats.n_searches
+    (t,), _ = serve(eng, "isomorphic re-query", [relabeled_variant(house, 11)])
+    check(t.result.cache_hit and eng.cache.stats.n_searches == searches
+          and eng.executions == 2, "the isomorphic re-query was not a hit")
+
+    whole = QueryEngine(small, cfg=cfg, chunk=128, stats=eng.stats,
+                        device=DEVICE)
+    serve(whole, "P1 at chunk 128, uninterrupted", [house])
+    dispatches = whole.last_round_dispatches
+    pre = QueryEngine(small, cfg=cfg, chunk=128, stats=eng.stats,
+                      preempt_dispatches=1, device=DEVICE)
+    _, rounds = serve(pre, "P1 at chunk 128, preempted every dispatch",
+                      [house])
+    check(rounds == dispatches and pre.preemptions == rounds - 1
+          and pre.executions == 1,
+          f"preempted run took {rounds} rounds for {dispatches} dispatches")
+    log(f"phase 13: engine checks in {time.perf_counter() - t0:.1f}s")
+
+
+def build_kernels() -> None:
+    """Phase 1: build K1, K2/K3 and K4 from the checkout's sources, one
+    nvcc per source, all started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.kernels import flash_attention, intersect, membership
+    from repro_torch.kernels import nvcc
+
+    kernels = (intersect, membership, flash_attention)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(kernels)) as pool:
+        libs = list(pool.map(lambda k: k.build(), kernels))
+    for k in kernels:
+        k.load()
     log(f"phase 1: built {', '.join(os.path.relpath(lib, ROOT) for lib in libs)}"
         f" in {time.perf_counter() - t0:.2f}s")
-    for src in (intersect.SOURCE, flash_attention.SOURCE):
+    for src in (k.SOURCE for k in kernels):
         for line in nvcc.build_logs.get(src.name, "").splitlines():
             if "registers" in line or "spill" in line:
                 log(f"phase 1: ptxas {src.name}: {line.strip()}")
@@ -868,6 +1230,8 @@ def main() -> int:
         f"cuda {torch.version.cuda}")
     build_kernels()
     kernels = graph_phases(card) + lm_phases(card)
+    kernels[3:3] = membership_phases(card)      # K1, K2, K3, K4
+    engine_phase(card)
     log(f"done in {time.perf_counter() - t_all:.1f}s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

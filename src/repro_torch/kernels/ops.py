@@ -1,25 +1,30 @@
-"""Public wrappers of kernels K1 and K4.
+"""Public wrappers of kernels K1–K4.
 
-Counterpart of `repro/kernels/ops.py:18-35, 113-225`.  `level_expand`
-(K1, with the reference's padding contract) and `flash_attention` (K4,
-in the model's [B, S, heads, hd] layout) dispatch on where their
+Counterpart of `repro/kernels/ops.py`.  `level_expand` (K1, with the
+reference's padding contract), `sorted_membership` (K2) and
+`intersect_count` (K3) over stacked sorted rows, and `flash_attention`
+(K4, in the model's [B, S, heads, hd] layout) dispatch on where their
 tensors lie: CUDA tensors go to the hand-written kernels
-(`intersect.level_expand_cuda`, `flash_attention.flash_attention_cuda`),
-CPU tensors to the plain PyTorch versions (`ref.level_expand_ref`,
+(`intersect.level_expand_cuda`, `membership.membership_cuda`,
+`flash_attention.flash_attention_cuda`), CPU tensors to the plain
+PyTorch versions (`ref.level_expand_ref`,
+`ref.membership_ref_searchsorted`, `ref.intersect_count_plain`,
 `ref.flash_attention_ref`).  They never fall back from one to the
 other: a build or launch failure raises.
 
 `launches` counts kernel launches: K1 per mode (`mask`, `count`,
-`signed`), K4 as `flash`.  A count moves only where its CUDA kernel is
-launched.
+`signed`), K2 as `membership`, K3 as `intersect_count`, K4 as `flash`.
+A count moves only where its CUDA kernel is launched.
 """
 from __future__ import annotations
 
 import torch
 
 from . import flash_attention as _k4
+from . import membership as _k23
 from .intersect import level_expand_cuda, load
-from .ref import flash_attention_ref, level_expand_ref
+from .ref import (flash_attention_ref, intersect_count_plain,
+                  level_expand_ref, membership_ref_searchsorted)
 
 CAND_PAD = -1
 NBR_PAD = torch.iinfo(torch.int32).max
@@ -30,7 +35,8 @@ NBR_PAD = torch.iinfo(torch.int32).max
 MAX_BLOCK_L = 512
 
 K1_MODES = ("mask", "count", "signed")
-launches = {**dict.fromkeys(K1_MODES, 0), "flash": 0}
+launches = {**dict.fromkeys(K1_MODES, 0), "membership": 0,
+            "intersect_count": 0, "flash": 0}
 
 
 def reset_launches() -> None:
@@ -59,6 +65,17 @@ def flat_gather_pad() -> int:
     executor's candidate-window gathers read past the last rows, and
     keeping the reference's layout keeps both packages' arrays equal."""
     return MAX_BLOCK_L
+
+
+def _route(device: torch.device) -> str:
+    """Which version of a kernel runs for tensors on `device`: the CUDA
+    kernel on a card, the plain version on the CPU; anything else is
+    refused."""
+    if device.type == "cuda":
+        return "kernel"
+    if device.type == "cpu":
+        return "plain"
+    raise ValueError(f"the port's kernels run on cuda or cpu, not {device}")
 
 
 def _check(name, t, dtype, shape, device):
@@ -128,12 +145,10 @@ def level_expand(
     if neg_from is not None and not count:
         raise ValueError("neg_from needs count=True")
 
-    if dev.type == "cpu":
+    if _route(dev) == "plain":
         return level_expand_ref(cand, flat, starts, lens, extra, cand_valid,
                                 dirs=dirs, count=count, neg_from=neg_from,
                                 window=window)
-    if dev.type != "cuda":
-        raise ValueError(f"level_expand runs on cuda or cpu, not {dev}")
     if B == 0:
         shape = (0,) if count else (0, D)
         return torch.zeros(shape, dtype=torch.int32 if count else torch.bool,
@@ -147,16 +162,108 @@ def level_expand(
     return out
 
 
-# ------------------------------------------------------------ attention ---
-def _route(device: torch.device) -> str:
-    """Which version of K4 runs for tensors on `device`: the kernel on a
-    card, the plain version on the CPU; anything else is refused."""
-    if device.type == "cuda":
-        return "kernel"
-    if device.type == "cpu":
-        return "plain"
-    raise ValueError(f"flash_attention runs on cuda or cpu, not {device}")
+# ------------------------------------------------- stacked membership ---
+def _stacked_rows(cand, nbr, cand_valid, nbr_len, blocks):
+    """The reference's input contract of K2/K3 (`repro/kernels/ops.py:
+    61-69, 94-102`), as int32 contiguous tensors: integer inputs
+    widened, invalid candidates set to CAND_PAD and row positions at or
+    past `nbr_len[b]` to NBR_PAD, so every row stays non-decreasing."""
+    for name, t in (("cand", cand), ("nbr", nbr)):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor, got {type(t)}")
+        if t.dim() != 2:
+            raise ValueError(f"{name} must be 2-D, got {tuple(t.shape)}")
+        if t.dtype.is_floating_point or t.dtype.is_complex \
+                or t.dtype == torch.bool:
+            raise TypeError(f"{name} must be an integer tensor, got "
+                            f"{t.dtype}")
+    if nbr.shape[0] != cand.shape[0]:
+        raise ValueError(f"cand {tuple(cand.shape)} and nbr "
+                         f"{tuple(nbr.shape)} differ in rows")
+    if any(int(b) < 1 for b in blocks):
+        raise ValueError(f"block sizes must be positive, got {blocks}")
+    dev = cand.device
+    if nbr.device != dev:
+        raise ValueError(f"nbr on {nbr.device}, cand on {dev}")
+    B = cand.shape[0]
+    cand = cand.to(torch.int32)
+    nbr = nbr.to(torch.int32)
+    if cand_valid is not None:
+        _check("cand_valid", cand_valid, torch.bool, tuple(cand.shape), dev)
+        cand = torch.where(cand_valid, cand, CAND_PAD)
+    if nbr_len is not None:
+        if (not isinstance(nbr_len, torch.Tensor)
+                or tuple(nbr_len.shape) != (B,) or nbr_len.device != dev
+                or nbr_len.dtype.is_floating_point):
+            raise ValueError(f"nbr_len must be an integer [{B}] tensor on "
+                             f"{dev}")
+        pos = torch.arange(nbr.shape[1], dtype=torch.int32, device=dev)
+        nbr = torch.where(pos[None, :] < nbr_len[:, None], nbr, NBR_PAD)
+    return cand.contiguous(), nbr.contiguous()
 
+
+def _membership(cand, nbr, cand_valid, nbr_len, blocks, *, count: bool):
+    cand, nbr = _stacked_rows(cand, nbr, cand_valid, nbr_len, blocks)
+    dev = cand.device
+    B, D = cand.shape
+    if _route(dev) == "plain":
+        return (intersect_count_plain(cand, nbr) if count
+                else membership_ref_searchsorted(cand, nbr))
+    if B == 0 or D == 0 or nbr.shape[1] == 0:
+        # nothing to launch: no candidate, or every row empty
+        if count:
+            return torch.zeros((B,), dtype=torch.int32, device=dev)
+        return torch.zeros((B, D), dtype=torch.bool, device=dev)
+    out = _k23.membership_cuda(cand, nbr, count=count)
+    launches["intersect_count" if count else "membership"] += 1
+    return out
+
+
+def sorted_membership(
+    cand: torch.Tensor,                      # [B, D] integer
+    nbr: torch.Tensor,                       # [B, L] integer, rows sorted
+    cand_valid: torch.Tensor | None = None,  # [B, D] bool
+    nbr_len: torch.Tensor | None = None,     # [B] valid row lengths
+    *,
+    block_b: int = 8,
+    block_d: int = 128,
+    block_l: int = 128,
+) -> torch.Tensor:
+    """K2: mask[b, d] = cand[b, d] ∈ nbr[b, :nbr_len[b]] (bool [B, D]).
+
+    The reference's contract: any integer dtype (widened to int32), rows
+    sorted ascending, `cand_valid` / `nbr_len` mask ragged tails and
+    padding never matches.  The domain is cand ∈ [-1, INT32_MAX): the
+    reference pads rows to `block_l` multiples with INT32_MAX, so its
+    answer for a candidate equal to INT32_MAX depends on the block size;
+    vertex ids never reach it, and the port does not reproduce that.
+    `block_b` / `block_d` / `block_l` are accepted for the reference's
+    signature; the kernel tiles rows its own way, and the result never
+    depends on them.  CUDA tensors launch the kernel, CPU tensors run the
+    plain version."""
+    return _membership(cand, nbr, cand_valid, nbr_len,
+                       (block_b, block_d, block_l), count=False)
+
+
+def intersect_count(
+    cand: torch.Tensor,
+    nbr: torch.Tensor,
+    cand_valid: torch.Tensor | None = None,
+    nbr_len: torch.Tensor | None = None,
+    *,
+    block_b: int = 8,
+    block_d: int = 128,
+    block_l: int = 128,
+) -> torch.Tensor:
+    """K3: cnt[b] = #{d : cand[b, d] ∈ nbr[b, :nbr_len[b]]} (int32 [B]);
+    duplicate candidates count separately.  As `sorted_membership`, and
+    the reference's contract: the valid prefix of each row strictly
+    increasing."""
+    return _membership(cand, nbr, cand_valid, nbr_len,
+                       (block_b, block_d, block_l), count=True)
+
+
+# ------------------------------------------------------------ attention ---
 
 def flash_attention_rows(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True) -> torch.Tensor:

@@ -1,9 +1,10 @@
 """Plain PyTorch versions of the port's kernels (the `ref.py` contract).
 
-Counterpart of `repro/kernels/ref.py:28-94`.  These run wherever the
-tensors lie and are what `kernels/ops.py` uses for CPU tensors; on the
-card they are only the yardstick the CUDA kernels are held against
-(`chip_smoke.py`: K1 bit-equal, K4 within the reference's tolerances).
+Counterpart of `repro/kernels/ref.py`.  These run wherever the tensors
+lie and are what `kernels/ops.py` uses for CPU tensors; on the card
+they are only the yardstick the CUDA kernels are held against
+(`chip_smoke.py`: K1, K2 and K3 bit-equal, K4 within the reference's
+tolerances).
 
 The reference's oracle gathers each predecessor window and
 broadcast-compares it with every candidate, an O(B·D·W) cube; at the
@@ -17,6 +18,38 @@ from __future__ import annotations
 import math
 
 import torch
+
+
+def membership_ref(cand: torch.Tensor, nbr: torch.Tensor) -> torch.Tensor:
+    """mask[b, d] = cand[b, d] ∈ nbr[b, :] — the O(B·D·L) broadcast
+    compare of the reference's oracle; small sizes only (tests)."""
+    return (cand[:, :, None] == nbr[:, None, :]).any(dim=-1)
+
+
+def membership_ref_searchsorted(cand: torch.Tensor,
+                                nbr: torch.Tensor) -> torch.Tensor:
+    """mask[b, d] = cand[b, d] ∈ nbr[b, :] by a binary search of each
+    candidate in its row (rows non-decreasing): O(B·D) memory.  The plain
+    version of K2, which `ops.sorted_membership` runs for CPU tensors."""
+    if nbr.shape[1] == 0:
+        return torch.zeros(cand.shape, dtype=torch.bool, device=cand.device)
+    idx = torch.searchsorted(nbr, cand)
+    idx = idx.clamp(max=nbr.shape[1] - 1)
+    return torch.gather(nbr, 1, idx) == cand
+
+
+def intersect_count_ref(cand: torch.Tensor, nbr: torch.Tensor) -> torch.Tensor:
+    """The reference's `intersect_count_ref`, kept as it is: the int32
+    [B, D] hit matrix (not a row count; see `intersect_count_plain`)."""
+    return membership_ref(cand, nbr).to(torch.int32)
+
+
+def intersect_count_plain(cand: torch.Tensor,
+                          nbr: torch.Tensor) -> torch.Tensor:
+    """cnt[b] = #{d : cand[b, d] ∈ nbr[b, :]} (int32; duplicate
+    candidates count separately) — the plain version of K3."""
+    return membership_ref_searchsorted(cand, nbr).sum(dim=1,
+                                                      dtype=torch.int32)
 
 
 def bs_iters(window: int) -> int:

@@ -13,17 +13,15 @@ on a card.  `--mode graphzero` runs the baseline (single restriction
 set, degree-heuristic schedule); `--mode naive` drops the restrictions
 and divides by |Aut|.
 
-This composes the steps the reference's `PlanCache.get_or_build` runs
-for one request directly; the query engine and its plan store are not
-part of this package yet.
+As in the reference (`repro/launch/mine.py`), this CLI is a one-request
+client of the `PlanCache` / `QueryEngine` request path.  The plan store
+(`--cache-dir`) arrives with its own slice.
 """
 from __future__ import annotations
 
 import argparse
 import sys
-from dataclasses import dataclass, replace
-
-from ..obs import timer
+from dataclasses import dataclass
 
 
 @dataclass
@@ -31,7 +29,8 @@ class MineResult:
     graph: object
     config: object
     plan: object
-    result: object            # CountResult (naive mode: divided by |Aut|)
+    result: object            # QueryResult of the one request
+    engine: object            # the QueryEngine that served it
     dispatches: int
     search_seconds: float
     compile_seconds: float
@@ -60,40 +59,14 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
-def plan_for(pattern, stats, *, mode: str = "graphpi",
-             use_iep: bool = False):
-    """(config, plan) for one request — the search and `build_plan`
-    that the reference's `PlanCache.get_or_build` runs on a miss
-    (`query/cache.py:236-253`), over the pattern's canonical form.
-    Naive plans carry no restrictions: their raw count is |Aut| times
-    the answer."""
-    from ..core.config_search import (graphzero_configuration,
-                                      search_configuration)
-    from ..core.plan import build_plan
-    from ..query.canon import canonical_form
-
-    canon = canonical_form(pattern)
-    if mode == "graphpi":
-        config = search_configuration(canon, stats, use_iep=use_iep).best
-    elif mode == "graphzero":
-        config = graphzero_configuration(canon, stats, use_iep=use_iep)
-    elif mode == "naive":
-        config = search_configuration(canon, stats, use_iep=False).best
-    else:
-        raise ValueError(f"unknown mode {mode!r}")
-    res_set = () if mode == "naive" else config.res_set
-    return config, build_plan(canon, config.order, res_set,
-                              iep_k=config.iep_k)
-
-
 def run(args, *, log=print) -> MineResult:
     """One counting request as `args` (from :func:`parse_args`) describe
-    it; `log` receives the reference's `[mine]` lines."""
+    it, through a `QueryEngine`; `log` receives the reference's `[mine]`
+    lines."""
     from ..configs.graphpi import get_dataset, get_pattern
-    from ..core.executor import (ExecutorConfig, Matcher, compute_stats,
-                                 device_graph)
+    from ..core.executor import ExecutorConfig
     from ..kernels import ops
-    from ..obs import MetricsRegistry, get_tracer
+    from ..query import QueryEngine, QueryRequest
 
     pattern = get_pattern(args.pattern)
     graph = get_dataset(args.dataset)
@@ -101,58 +74,48 @@ def run(args, *, log=print) -> MineResult:
         f"|Aut|={pattern.aut_count()})  graph={graph.name} "
         f"(|V|={graph.n}, |E|={graph.m}, max_deg={graph.max_degree})")
 
-    cfg = ExecutorConfig(capacity=args.capacity)
-    arrays = device_graph(graph, args.device)      # ONE resident upload
-    with timer() as t:
-        stats = compute_stats(graph, cfg, device=args.device, arrays=arrays)
-    log(f"[mine] stats: tri_cnt={stats.tri_cnt} ({t.seconds:.2f}s)")
+    engine = QueryEngine(graph, cfg=ExecutorConfig(capacity=args.capacity),
+                         device=args.device)
+    log(f"[mine] stats: tri_cnt={engine.stats.tri_cnt} "
+        f"({engine.stats_seconds:.2f}s)")
 
-    with get_tracer().span("cache.search", mode=args.mode), timer() as t:
-        config, plan = plan_for(pattern, stats, mode=args.mode,
-                                use_iep=args.use_iep)
-    search_s = t.seconds
-
-    matcher = Matcher(graph, plan, cfg, arrays=arrays, device=args.device)
-    with get_tracer().span("cache.compile", mode=args.mode), timer() as t:
-        matcher.warmup()
-    compile_s = t.seconds
-    log(f"[mine] config: schedule={config.order} restrictions={plan.res_set} "
-        f"iep_k={config.iep_k} (search {search_s:.3f}s, "
-        f"compile {compile_s:.3f}s)")
-
+    ticket = engine.enqueue(QueryRequest(
+        pattern, use_iep=args.use_iep, verify=args.verify, mode=args.mode))
     before = dict(ops.launches)
-    with timer() as t:
-        state, out = matcher.count_partial()
+    engine.run_pending()
     launches = {k: ops.launches[k] - before[k] for k in ops.K1_MODES}
-    if args.mode == "naive":
-        out = replace(out, count=out.count // plan.pattern.aut_count())
-    log(f"[mine] count={out.count}  wall={t.seconds:.3f}s  "
-        f"(dispatches: {state.dispatches}; "
-        f"max frontier rows used: {out.max_needed}"
-        f"{', OVERFLOWED' if out.overflowed else ''})")
-    metrics = MetricsRegistry()
-    metrics.counter("executor.dispatches").inc(state.dispatches)
-    metrics.gauge("executor.max_needed").set(out.max_needed)
-    for name, sec in (("search", search_s), ("compile", compile_s),
-                      ("count", t.seconds)):
+    res = ticket.result
+    entry = next(e for e in engine.cache.entries()
+                 if e.canon_key == res.canon_key and e.mode == args.mode)
+    how = "cache hit" if res.cache_hit else "cache miss"
+    log(f"[mine] config: schedule={res.order} restrictions={res.res_set} "
+        f"iep_k={res.iep_k} (search {res.search_seconds:.3f}s, "
+        f"compile {res.compile_seconds:.3f}s, {how})")
+    exec_s = res.latency_s - res.search_seconds - res.compile_seconds
+    dispatches = engine.last_round_dispatches
+    log(f"[mine] count={res.count}  wall={exec_s:.3f}s  "
+        f"(query latency {res.latency_s:.3f}s incl. search+compile; "
+        f"dispatches: {dispatches}; max frontier rows used: "
+        f"{res.max_needed}{', OVERFLOWED' if res.overflowed else ''})")
+
+    metrics = engine.metrics
+    metrics.counter("executor.dispatches").inc(dispatches)
+    metrics.gauge("executor.max_needed").set(res.max_needed)
+    for name, sec in (("search", res.search_seconds),
+                      ("compile", res.compile_seconds), ("count", exec_s)):
         metrics.histogram(f"mine.{name}_ms").observe(sec * 1e3)
     for mode, n in launches.items():
         metrics.counter("kernel.level_expand.launches", mode=mode).inc(n)
-    res = MineResult(
-        graph=graph, config=config, plan=plan, result=out,
-        dispatches=state.dispatches, search_seconds=search_s,
-        compile_seconds=compile_s, wall_seconds=t.seconds,
-        launches=launches, metrics=metrics)
-
     if args.verify:
-        from ..core.oracle import count_embeddings_oracle
-
-        res.expected = count_embeddings_oracle(
-            graph.n, graph.edge_array(), pattern, labels=graph.labels)
-        res.verified = res.expected == out.count
         log(f"[mine] oracle={res.expected}  "
             f"{'OK' if res.verified else 'MISMATCH'}")
-    return res
+    return MineResult(
+        graph=graph, config=entry.config, plan=entry.plan, result=res,
+        engine=engine, dispatches=dispatches,
+        search_seconds=res.search_seconds,
+        compile_seconds=res.compile_seconds, wall_seconds=exec_s,
+        launches=launches, metrics=metrics, expected=res.expected,
+        verified=res.verified)
 
 
 def main(argv=None) -> int:

@@ -1,6 +1,6 @@
-"""The port's CUDA kernels on a card: K1 (`level_expand.cu`) and K4
-(`flash_attention.cu`) built with nvcc and held against their plain
-PyTorch versions, every launch counted.
+"""The port's CUDA kernels on a card: K1 (`level_expand.cu`), K2/K3
+(`membership.cu`) and K4 (`flash_attention.cu`) built with nvcc and held
+against their plain PyTorch versions, every launch counted.
 
 These tests carry the `cuda` marker and skip without a card.  This file
 imports neither JAX nor the reference package, so it also runs on a
@@ -12,8 +12,10 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import ops
-from repro_torch.kernels.ref import flash_attention_ref, level_expand_ref
+from repro_torch.kernels import membership, ops
+from repro_torch.kernels.ref import (flash_attention_ref,
+                                    intersect_count_plain, level_expand_ref,
+                                    membership_ref_searchsorted)
 
 
 def _need_card(kernel):
@@ -60,6 +62,7 @@ def test_cuda_kernel_matches_plain_version():
                                 window=50, **kw)
         assert torch.equal(got, want)
     assert ops.launches == {"mask": 1, "count": 1, "signed": 1,
+                            "membership": 0, "intersect_count": 0,
                             "flash": 0}
 
 
@@ -111,3 +114,99 @@ def test_flash_model_layout_on_card():
         err = (got.transpose(1, 2).reshape(-1, 512, 64).float()
                - want.float()).abs().max()
         assert float(err) <= ATOL["bfloat16"]
+
+
+# K2/K3: the reference test's shapes (tests/test_kernels.py:26-34), then
+# rows longer than one shared tile (membership.TILE = 4,096 int32)
+MEMBERSHIP_SHAPES = [(1, 1, 1), (3, 5, 7), (8, 128, 128), (16, 256, 384),
+                     (9, 130, 200), (2, 300, 64), (32, 64, 512),
+                     (4, 700, 9000), (1, 1, 5000)]
+
+
+def _rows(seed, B, D, L, dtype=np.int32, hi=None):
+    """Strictly increasing rows and candidates from the same range."""
+    rng = np.random.default_rng(seed)
+    hi = hi or max(2048, 2 * L)
+    nbr = np.stack([np.sort(rng.choice(hi, size=L, replace=False))
+                    for _ in range(B)]).astype(dtype)
+    cand = rng.integers(0, hi, size=(B, D)).astype(dtype)
+    return rng, cand, nbr
+
+
+def _both(cand, nbr, **kw):
+    """(mask, count) from the kernels and from the plain versions."""
+    got = (ops.sorted_membership(cand, nbr, **kw),
+           ops.intersect_count(cand, nbr, **kw))
+    c32, n32 = ops._stacked_rows(cand, nbr, kw.get("cand_valid"),
+                                 kw.get("nbr_len"), (1, 1, 1))
+    want = (membership_ref_searchsorted(c32, n32),
+            intersect_count_plain(c32, n32))
+    torch.cuda.synchronize()
+    return got, want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.int32, np.int16], ids=["i32", "i16"])
+def test_membership_kernels_match_plain_version(dtype):
+    """K2 and K3 are bit-equal to the plain versions on the reference
+    shapes and rows past one shared tile, int32 and int16 inputs, and
+    each launch is counted."""
+    _need_card("K2/K3")
+    ops.reset_launches()
+    for i, (B, D, L) in enumerate(MEMBERSHIP_SHAPES):
+        hi = 30000 if dtype == np.int16 else None
+        _, cand, nbr = _rows(i, B, D, L, dtype, hi)
+        (m, c), (wm, wc) = _both(torch.from_numpy(cand).cuda(),
+                                 torch.from_numpy(nbr).cuda())
+        assert torch.equal(m, wm), (B, D, L)
+        assert torch.equal(c, wc), (B, D, L)
+    n = len(MEMBERSHIP_SHAPES)
+    assert (ops.launches["membership"], ops.launches["intersect_count"]) \
+        == (n, n)
+
+
+@pytest.mark.cuda
+def test_membership_kernels_ragged_and_duplicates():
+    """Ragged cand_valid / nbr_len (empty rows included), duplicate
+    candidates counted separately, and rows whose valid prefix ends
+    inside a tile."""
+    _need_card("K2/K3")
+    for B, D, L in ((6, 100, 150), (5, 333, 9000)):
+        rng, cand, nbr = _rows(11, B, D, L)
+        nbr_len = rng.integers(0, L + 1, size=B).astype(np.int32)
+        nbr_len[0] = 0
+        valid = rng.random((B, D)) < 0.7
+        dev = [torch.from_numpy(a).cuda() for a in (cand, nbr, valid,
+                                                    nbr_len)]
+        (m, c), (wm, wc) = _both(dev[0], dev[1], cand_valid=dev[2],
+                                 nbr_len=dev[3])
+        assert torch.equal(m, wm) and torch.equal(c, wc)
+        assert int(c[0]) == 0
+    cand = torch.tensor([[5, 5, 5, 7]], dtype=torch.int32, device="cuda")
+    nbr = torch.tensor([[1, 5, 9, 2**31 - 1]], dtype=torch.int32,
+                       device="cuda")
+    assert int(ops.intersect_count(cand, nbr)[0]) == 3
+    assert ops.sorted_membership(cand, nbr).tolist() == [[True] * 3 + [False]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [1, 7, 64, 128, 4096])
+def test_membership_kernel_tile_invariance(tile):
+    """The shared-memory tile width (and the wrapper's block sizes) never
+    change the result: rows of 300 entries searched in 1-300 tiles,
+    rows with runs of equal entries across tile boundaries."""
+    _need_card("K2/K3")
+    rng, cand, nbr = _rows(21, 12, 200, 300)
+    nbr[:, 100:140] = nbr[:, 100:101]            # a run of equal entries
+    nbr = np.sort(nbr, axis=1)
+    cand[:, :20] = nbr[:, 100:101]
+    c_d, n_d = torch.from_numpy(cand).cuda(), torch.from_numpy(nbr).cuda()
+    want_m = membership_ref_searchsorted(c_d, n_d)
+    for count in (False, True):
+        got = membership.membership_cuda(c_d, n_d, count=count, tile=tile)
+        want = (want_m.sum(dim=1, dtype=torch.int32) if count else want_m)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (tile, count)
+    for bb, bd, bl in ((8, 128, 128), (8, 128, 256), (16, 256, 128)):
+        assert torch.equal(ops.sorted_membership(
+            c_d, n_d, block_b=bb, block_d=bd, block_l=bl), want_m)

@@ -147,6 +147,7 @@ def test_cpu_calls_do_not_count_launches():
     ops.level_expand(*_t(cand, flat, starts, lens, extra, valid),
                      dirs=(1, -1, 0), count=True, window=50)
     assert ops.launches == {"mask": 0, "count": 0, "signed": 0,
+                            "membership": 0, "intersect_count": 0,
                             "flash": 0}
 
 
