@@ -8,9 +8,11 @@ run outside a checkout of this repository.  Phases, one line each:
 
  1. the card's name and power limit (`nvidia-smi`), then K1
     (`src/repro_torch/kernels/csrc/level_expand.cu`), K2/K3
-    (`csrc/membership.cu`) and K4 (`csrc/flash_attention.cu`) built with
-    nvcc for sm_90a from the checkout's sources, one nvcc per source,
-    started together;
+    (`csrc/membership.cu`) and K4 (`csrc/flash_attention.cu` with
+    `csrc/hopper.cuh`) built with nvcc for sm_90a from the checkout's
+    sources, one nvcc per source, started together; each build's
+    seconds and each kernel's ptxas registers and spills (K4's wgmma
+    kernel must not spill);
  2. K1 against its plain PyTorch version on the card, bit-equal, on
     windows of the wiki-vote-syn CSR at main-path shapes (B = 32768,
     D ∈ {128, 1024, 1917}, P ∈ {1, 2, 3}) in mask, count and signed mode;
@@ -30,8 +32,12 @@ run outside a checkout of this repository.  Phases, one line each:
 
  7. K4 against its plain PyTorch version on the card: the reference
     test's shapes, causal and bidirectional, bf16 and fp32, within the
-    reference's tolerances (3e-2 / 2e-5), and the qwen3-1.7b serving
-    shape (q [64, 2048, 128] over k/v [32, 2048, 128], bf16, causal);
+    reference's tolerances (3e-2 / 2e-5), then in bf16 the qwen3-1.7b
+    serving shape (q [64, 2048, 128] over k/v [32, 2048, 128], causal),
+    48 query heads over one KV head at S = 1,024, a ragged
+    (6, 3, 1000, 777, 128) and a bidirectional (8, 8, 2048, 2048, 64);
+    each case launches the kernel the source's rule names (bf16: wgmma,
+    fp32: scalar) and each bf16 case twice, bit-equal;
  8. qwen3-1.7b at full width and depth (random weights from seed 0)
     through `repro_torch.launch.serve.main`: batch 4, a 2,048-token
     prompt, 16 generated tokens; then a second session with the same
@@ -39,13 +45,15 @@ run outside a checkout of this repository.  Phases, one line each:
     (its undisturbed rows must equal the served run's tokens); then
     the kernel-path prefill's logits against the plain-attention
     path's on the same weights and prompts (limits PREFILL_MAX_ABS and
-    PREFILL_MEAN_ABS below, with their reasons); and a torch.profiler
+    PREFILL_MEAN_ABS below, with their reasons), every K4 launch of the
+    wgmma kernel; and a torch.profiler
     window over one batch prefill and 4 decode steps (device kernel
     time against unprofiled wall time, top kernels);
- 9. K4's time per launch at the serving shape beside its plain
-    version's, PyTorch's `scaled_dot_product_attention` on the same
-    tensors (the library yardstick; the port never calls it) and the
-    card's bound.
+ 9. K4's time per launch at the serving shape, in one process on the
+    same tensors: the wgmma kernel, the scalar kernel it replaced (bf16),
+    the plain version and PyTorch's `scaled_dot_product_attention` (the
+    library yardstick; the port never calls it), with TFLOP/s and the
+    share of the card's bound.
 
 10. K2 and K3 (`csrc/membership.cu`) against their plain PyTorch
     versions on the card, bit-equal: the reference test's shapes in
@@ -68,14 +76,15 @@ and reads them just after; a kernel-path count must launch exactly the
 modes its plan needs, a portable-path count none.  In phase 8 K4's
 counter is set to 0 just before each batch prefill, admission and
 decode call and read just after: n_layers (28) launches per prefill
-and per admission, none in decode.
+and per admission, all of the wgmma kernel, none in decode.
 In phase 12 K2's and K3's counters are set to 0 just before the
 composed runs and read just after; in phase 13 K1's, around each round
 of the engine, must show exactly the plan's modes.
 
 Counts are integers and every comparison of phases 2–6 and 10–13 is
 exact (no tolerance).  The last two lines are the kernels record (K1's
-three modes, K2, K3, K4) and the device record (JSON).
+three modes, K2, K3, K4 with its kernel `variant` and `tflops`) and the
+device record (JSON).
 """
 from __future__ import annotations
 
@@ -351,6 +360,13 @@ FLASH_SHAPES = [(4, 4, 256, 256, 64), (8, 2, 256, 256, 64),
                 (6, 6, 128, 128, 128), (2, 1, 512, 512, 32),
                 (3, 3, 384, 384, 64)]
 SERVE_ROWS = (64, 32, 2048, 2048, 128)
+# bf16 shapes of the wgmma kernel, with their mask: the serving shape;
+# multi-query attention with granite-34b's 48 query heads over one KV
+# head at S = 1,024; lengths off the 128-row tiles; and a bidirectional
+# one at hd 64.
+WGMMA_CASES = [(SERVE_ROWS, True), ((48, 1, 1024, 1024, 128), True),
+               ((6, 3, 1000, 777, 128), True),
+               ((8, 8, 2048, 2048, 64), False)]
 # The reference's own tolerances (tests/test_flash_kernel.py:39).
 FLASH_ATOL = {"bfloat16": 3e-2, "float32": 2e-5}
 BF16_FLOPS = 989e12              # H100 SXM dense bf16 tensor cores
@@ -375,25 +391,39 @@ def flash_err(got, want) -> float:
 
 def check_k4(errs) -> int:
     """K4 against its plain version on the reference test's shapes
-    (causal and bidirectional, bf16 and fp32) and on the serving shape
-    (bf16, causal); each case within the reference's tolerance."""
+    (causal and bidirectional, bf16 and fp32) and on `WGMMA_CASES`
+    (bf16); each case within the reference's tolerance, launching the
+    kernel the source's rule names (bf16 with hd % 8 == 0: wgmma; fp32:
+    scalar), and each bf16 case launched twice with bit-equal results."""
     import torch
 
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels import flash_attention as k4
     from repro_torch.kernels.ref import flash_attention_ref
 
     cases = [(s, c, d) for s in FLASH_SHAPES for c in (True, False)
              for d in ("bfloat16", "float32")]
-    cases.append((SERVE_ROWS, True, "bfloat16"))
+    cases += [(s, c, "bfloat16") for s, c in WGMMA_CASES]
     for i, (shape, causal, dname) in enumerate(cases):
-        q, k, v = flash_inputs(shape, getattr(torch, dname), 100 + i)
-        got = flash_attention_cuda(q, k, v, causal=causal)
+        dtype = getattr(torch, dname)
+        q, k, v = flash_inputs(shape, dtype, 100 + i)
+        want_variant = "wgmma" if dname == "bfloat16" else "scalar"
+        before = dict(k4.variant_launches)
+        got = k4.flash_attention_cuda(q, k, v, causal=causal)
         want = flash_attention_ref(q, k, v, causal=causal)
         err = flash_err(got, want)
         errs.append(err)
         what = (f"K4 {shape} {'causal' if causal else 'bidir'} {dname}")
-        log(f"phase 7: {what}: max_abs_err={err:.3e} "
-            f"(atol {FLASH_ATOL[dname]:g})")
+        ran = {n: k4.variant_launches[n] - before[n] for n in before}
+        check(ran == {n: int(n == want_variant) for n in ran},
+              f"{what}: launched {ran}, not one {want_variant}")
+        same = ""
+        if dname == "bfloat16":
+            again = k4.flash_attention_cuda(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            check(torch.equal(got, again), f"{what}: two launches differ")
+            same = "; relaunch bit-equal"
+        log(f"phase 7: {what} ({want_variant}): max_abs_err={err:.3e} "
+            f"(atol {FLASH_ATOL[dname]:g}){same}")
         check(bool(torch.isfinite(got.float()).all()), f"{what}: not finite")
         check(err <= FLASH_ATOL[dname], f"{what}: max_abs_err {err:.3e} > "
               f"{FLASH_ATOL[dname]:g}")
@@ -625,8 +655,9 @@ PREFILL_MEAN_ABS = 0.05
 
 class PhaseLaunches:
     """Wraps LMSession's batch prefill, admission and decode: K4's launch
-    counter is set to 0 just before each call and read just after, and
-    kept as (phase, launches) in call order, with each session seen."""
+    counters are set to 0 just before each call and read just after, and
+    kept as (phase, launches) in call order, with the launches of each
+    K4 kernel (`variants`) and each session seen."""
 
     PHASES = {"_prefill": "prefill", "admit": "admit",
               "decode_steps": "decode"}
@@ -636,11 +667,13 @@ class PhaseLaunches:
 
         self.cls = LMSession
         self.records: list[tuple[str, int]] = []
+        self.variants: list[dict] = []
         self.sessions: list = []
 
     def _wrap(self, fn, phase):
         import torch
 
+        from repro_torch.kernels import flash_attention as k4
         from repro_torch.kernels import ops
 
         def wrapped(session, *a, **kw):
@@ -650,6 +683,7 @@ class PhaseLaunches:
             out = fn(session, *a, **kw)
             torch.cuda.synchronize()
             self.records.append((phase, ops.launches["flash"]))
+            self.variants.append(dict(k4.variant_launches))
             return out
         return wrapped
 
@@ -665,9 +699,14 @@ class PhaseLaunches:
         return False
 
 
-def check_launches_k4(what, records, want) -> None:
-    log(f"phase 8: {what}: K4 launches per phase {records}")
-    check(records == want, f"{what}: K4 launches {records} != {want}")
+def check_launches_k4(what, rec, want) -> None:
+    """`rec` (a PhaseLaunches) saw the phases and K4 launches `want`, and
+    every launch was of the wgmma kernel (bf16, hd 128)."""
+    log(f"phase 8: {what}: K4 launches per phase {rec.records}; per "
+        f"kernel {rec.variants}")
+    check(rec.records == want, f"{what}: K4 launches {rec.records} != {want}")
+    check(rec.variants == [{"scalar": 0, "wgmma": n} for _, n in want],
+          f"{what}: K4 kernels {rec.variants}: the scalar one ran")
 
 
 def profile_serving(session, cfg, batch, card) -> None:
@@ -716,6 +755,7 @@ def serve_phase(card):
     import torch
 
     from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as k4
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
     from repro_torch.serve.serve_step import make_prefill
@@ -727,8 +767,7 @@ def serve_phase(card):
     with PhaseLaunches() as rec:
         rc = serve.main(SERVE_ARGV + ["--device", DEVICE])
     check(rc == 0, f"serve.main exited {rc}")
-    check_launches_k4("serve.main", rec.records,
-                      [("prefill", L), ("decode", 0)])
+    check_launches_k4("serve.main", rec, [("prefill", L), ("decode", 0)])
     served_launches = rec.records[0][1]
     served = rec.sessions[0]
     check(served.metrics()["flash_launches"] == L,
@@ -757,7 +796,7 @@ def serve_phase(card):
         gone = s.evict(2)
         slot = s.admit()
         s.decode_steps(4)
-    check_launches_k4("evict/admit session", rec.records,
+    check_launches_k4("evict/admit session", rec,
                       [("prefill", L), ("decode", 0), ("admit", L),
                        ("decode", 0)])
     check(slot == 2, f"admitted into slot {slot}")
@@ -778,9 +817,11 @@ def serve_phase(card):
         logits, _ = make_prefill(cfg, DEVICE, q_chunk=0, flash=flash)(
             s._params, batch)
         torch.cuda.synchronize()
-        runs[name] = (logits, ops.launches["flash"])
-    (kl, kn), (pl, pn) = runs["kernel"], runs["plain"]
-    check((kn, pn) == (L, 0), f"prefill launches kernel={kn} plain={pn}")
+        runs[name] = (logits, ops.launches["flash"],
+                      k4.variant_launches["wgmma"])
+    (kl, kn, kw), (pl, pn, pw) = runs["kernel"], runs["plain"]
+    check((kn, pn, kw, pw) == (L, 0, L, 0),
+          f"prefill launches kernel={kn} ({kw} wgmma) plain={pn}")
     check(bool(torch.isfinite(kl).all()), "kernel-path logits not finite")
     diff = (kl - pl).abs()
     d_max, d_mean = float(diff.max()), float(diff.mean())
@@ -799,9 +840,13 @@ def serve_phase(card):
 
 
 def time_k4(card, errs) -> dict:
-    """Phase 9: K4 at the serving shape, CUDA events (3 warm-up launches,
-    then 20 timed), beside the plain version, the library's SDPA on the
-    same tensors and the card's bound."""
+    """Phase 9: at the serving shape, in one process and on the same
+    tensors: K4's wgmma kernel (the serving path), the scalar kernel's
+    bf16 instantiation (the design it replaced), the plain version and
+    PyTorch's `scaled_dot_product_attention` (the library yardstick; the
+    port never calls it), with CUDA events (3 warm-up launches, then 50
+    timed; 20 for the scalar kernel, 5 for the plain version), beside the
+    card's bound."""
     import torch
     import torch.nn.functional as F
 
@@ -811,8 +856,14 @@ def time_k4(card, errs) -> dict:
     BH, BK, S, _, hd = SERVE_ROWS
     q, k, v = flash_inputs(SERVE_ROWS, torch.bfloat16, 7)
     got = flash_attention_cuda(q, k, v, causal=True)
-    errs.append(flash_err(got, flash_attention_ref(q, k, v, causal=True)))
-    ms = time_ms(lambda: flash_attention_cuda(q, k, v, causal=True))
+    old = flash_attention_cuda(q, k, v, causal=True, variant="scalar")
+    want = flash_attention_ref(q, k, v, causal=True)
+    errs.append(flash_err(got, want))
+    old_err = flash_err(old, want)
+    ms = time_ms(lambda: flash_attention_cuda(q, k, v, causal=True),
+                 iters=50)
+    scalar_ms = time_ms(lambda: flash_attention_cuda(
+        q, k, v, causal=True, variant="scalar"))
     plain_ms = time_ms(lambda: flash_attention_ref(q, k, v, causal=True),
                        iters=5)
     B = 4
@@ -821,20 +872,30 @@ def time_k4(card, errs) -> dict:
                                           enable_gqa=True)
     sdpa_err = flash_err(got.view(B, BH // B, S, hd), sdpa)
     library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        q4, k4, v4, is_causal=True, enable_gqa=True))
+        q4, k4, v4, is_causal=True, enable_gqa=True), iters=50)
     flops = 4.0 * BH * hd * S * (S + 1) / 2          # causal pairs only
     nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
     t_ops = flops / BF16_FLOPS * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     bound_ms, bound_by = ((t_ops, "operations") if t_ops >= t_bytes
                           else (t_bytes, "bytes"))
+    tflops = flops / ms / 1e9
     log(f"phase 9: K4 q [{BH}, {S}, {hd}] k/v [{BK}, {S}, {hd}] bf16 "
-        f"causal: ms={ms:.4f} plain_ms={plain_ms:.4f} sdpa_ms="
-        f"{library_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}: "
-        f"{flops:.3e} FLOP, {nbytes / 1e9:.4f} GB) K4 vs sdpa "
-        f"max_abs={sdpa_err:.3e} on {card}")
+        f"causal: wgmma ms={ms:.4f} ({tflops:.1f} TFLOP/s, "
+        f"{100 * bound_ms / ms:.1f}% of the bound) scalar_ms="
+        f"{scalar_ms:.4f} ({flops / scalar_ms / 1e9:.1f} TFLOP/s) "
+        f"plain_ms={plain_ms:.4f} sdpa_ms={library_ms:.4f} "
+        f"({flops / library_ms / 1e9:.1f} TFLOP/s) bound_ms={bound_ms:.4f} "
+        f"({bound_by}: {flops:.3e} FLOP, {nbytes / 1e9:.4f} GB); "
+        f"wgmma/sdpa {ms / library_ms:.2f}x, scalar/wgmma "
+        f"{scalar_ms / ms:.1f}x; max_abs vs plain wgmma={errs[-1]:.3e} "
+        f"scalar={old_err:.3e} sdpa={flash_err(sdpa, want.view(sdpa.shape)):.3e}"
+        f", wgmma vs sdpa {sdpa_err:.3e} on {card}")
+    check(old_err <= FLASH_ATOL["bfloat16"],
+          f"scalar K4 max_abs_err {old_err:.3e}")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms}
+            "bound_by": bound_by, "library_ms": library_ms,
+            "variant": "wgmma", "tflops": tflops}
 
 
 def lm_phases(card) -> list:
@@ -1193,9 +1254,40 @@ def engine_phase(card) -> None:
     log(f"phase 13: engine checks in {time.perf_counter() - t0:.1f}s")
 
 
+def ptxas_summary(log_text: str) -> list:
+    """(kernel, registers, spill store bytes, spill load bytes) for each
+    entry function of an `nvcc -Xptxas -v` log; names demangled by
+    `c++filt` where the machine has it, without their parameter lists."""
+    import re
+    import shutil
+    import subprocess
+
+    out, name, spills = [], None, (0, 0)
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            if shutil.which("c++filt"):
+                name = subprocess.run(["c++filt", name], capture_output=True,
+                                      text=True).stdout.strip() or name
+            name = name.replace("(anonymous namespace)::", "")
+            name = name.split("(")[0].removeprefix("void ").strip()
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name is not None:
+            out.append((name, int(m.group(1)), *spills))
+            name = None
+    return out
+
+
 def build_kernels() -> None:
     """Phase 1: build K1, K2/K3 and K4 from the checkout's sources, one
-    nvcc per source, all started together."""
+    nvcc per source, all started together; print each build's time and
+    each kernel's registers and spills (ptxas), and the compiler's notes
+    on the wgmma kernel.  The wgmma kernel must not spill."""
     from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.kernels import flash_attention, intersect, membership
@@ -1210,9 +1302,19 @@ def build_kernels() -> None:
     log(f"phase 1: built {', '.join(os.path.relpath(lib, ROOT) for lib in libs)}"
         f" in {time.perf_counter() - t0:.2f}s")
     for src in (k.SOURCE for k in kernels):
-        for line in nvcc.build_logs.get(src.name, "").splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"phase 1: ptxas {src.name}: {line.strip()}")
+        if src.name not in nvcc.build_logs:
+            log(f"phase 1: {src.name}: library found, not rebuilt")
+            continue
+        text = nvcc.build_logs[src.name]
+        log(f"phase 1: nvcc {src.name}: {nvcc.build_seconds[src.name]:.2f}s")
+        for name, regs, st, ld in ptxas_summary(text):
+            log(f"phase 1: ptxas {src.name} {name}: {regs} registers, "
+                f"spill stores {st} B, spill loads {ld} B")
+            if "wgmma::" in name:
+                check(st == ld == 0, f"{name} spills ({st} / {ld} bytes)")
+        for line in text.splitlines():
+            if "wgmma" in line and ("C75" in line or "arning" in line):
+                log(f"phase 1: ptxas note: {line.strip()[:160]}")
 
 
 def main() -> int:

@@ -13,8 +13,9 @@ PyTorch versions (`ref.level_expand_ref`,
 other: a build or launch failure raises.
 
 `launches` counts kernel launches: K1 per mode (`mask`, `count`,
-`signed`), K2 as `membership`, K3 as `intersect_count`, K4 as `flash`.
-A count moves only where its CUDA kernel is launched.
+`signed`), K2 as `membership`, K3 as `intersect_count`, K4 as `flash`
+(and per K4 kernel in `flash_attention.variant_launches`).  A count
+moves only where its CUDA kernel is launched.
 """
 from __future__ import annotations
 
@@ -42,6 +43,8 @@ launches = {**dict.fromkeys(K1_MODES, 0), "membership": 0,
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
+    for k in _k4.variant_launches:
+        _k4.variant_launches[k] = 0
 
 
 def prepare(device) -> None:

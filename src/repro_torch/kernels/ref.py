@@ -145,3 +145,67 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         s = s.masked_fill(qi < ki, float("-inf"))
     w = torch.softmax(s, dim=-1)
     return torch.einsum("bqk,bkh->bqh", w, vf).to(q.dtype)
+
+
+LOG2E = 1.4426950408889634
+NEG_INF = -1e30
+
+
+def flash_attention_tiled_ref(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, *, causal: bool = True,
+                              sm_scale: float | None = None,
+                              block_q: int = 128,
+                              block_kv: int = 128) -> torch.Tensor:
+    """Tile-by-tile emulation of the arithmetic of K4's wgmma kernel
+    (kernels/csrc/flash_attention.cu, `wgmma::flash_fwd`), for tests
+    only; never on the serving path.
+
+    Query tiles of `block_q` rows walk key tiles of `block_kv` keys, in
+    fp32: scores q.k scaled by sm_scale·log2(e), masked (causal: key >
+    query) to the finite NEG_INF, an online softmax in exp2 (running
+    max m, sum l, accumulator rescaled by exp2(m_old - m_new)), and P
+    rounded to bf16 before P.V, as the kernel feeds P to the tensor
+    cores; key tiles wholly above the causal diagonal are skipped; o =
+    acc / max(l, 1e-30) in q's dtype.  Same layout and GQA rule as
+    `flash_attention_ref`.  The kernel's sums run in another order, so
+    the two agree to rounding, not bit for bit."""
+    BH, Sq, hd = q.shape
+    BK, Sk, _ = k.shape
+    g = BH // BK
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(hd)
+    # the kernel's host code forms the factor in fp32
+    c = float(torch.tensor(sm_scale, dtype=torch.float32)
+              * torch.tensor(LOG2E, dtype=torch.float32))
+    qf = q.float()
+    kf = k.float().repeat_interleave(g, dim=0)
+    vf = v.float().repeat_interleave(g, dim=0)
+    out = torch.empty_like(q)
+    n_kv = -(-Sk // block_kv)
+    for q0 in range(0, Sq, block_q):
+        qt = qf[:, q0:q0 + block_q]
+        rows = qt.shape[1]
+        m = torch.full((BH, rows), NEG_INF, device=q.device)
+        l = torch.zeros((BH, rows), device=q.device)
+        acc = torch.zeros((BH, rows, hd), device=q.device)
+        n_kt = n_kv
+        if causal:
+            n_kt = min(n_kt, (q0 + block_q - 1) // block_kv + 1)
+        qi = torch.arange(q0, q0 + rows, device=q.device)[:, None]
+        for k0 in range(0, n_kt * block_kv, block_kv):
+            kt, vt = kf[:, k0:k0 + block_kv], vf[:, k0:k0 + block_kv]
+            s = torch.einsum("bqh,bkh->bqk", qt, kt) * c
+            if causal:
+                ki = torch.arange(k0, k0 + kt.shape[1],
+                                  device=q.device)[None, :]
+                s = s.masked_fill(ki > qi, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            alpha = torch.exp2(m - m_new)
+            p = torch.exp2(s - m_new[..., None])
+            l = l * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bqk,bkh->bqh", p.bfloat16().float(), vt)
+            m = m_new
+        out[:, q0:q0 + rows] = (acc / l.clamp(min=1e-30)[..., None]
+                                ).to(q.dtype)
+    return out

@@ -99,6 +99,73 @@ def test_flash_kernel_matches_plain_version():
     assert ops.launches["flash"] == len(cases)
 
 
+# bf16 shapes of the wgmma kernel (BH, BK, Sq, Sk, hd, causal): the
+# qwen3-1.7b serving shape, multi-query attention with granite-34b's 48
+# query heads over one KV head, lengths off the 128-row tiles, and a
+# bidirectional one at hd 64
+WGMMA_CASES = [(64, 32, 2048, 2048, 128, True), (48, 1, 1024, 1024, 128, True),
+               (6, 3, 1000, 777, 128, True), (8, 8, 2048, 2048, 64, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", WGMMA_CASES, ids=str)
+def test_flash_wgmma_kernel_shapes(case):
+    """The wgmma kernel at serving-size, MQA, ragged and bidirectional
+    shapes: within the bf16 tolerance of the plain version, launched
+    (and counted) as the wgmma variant, and bit-equal over two launches."""
+    _need_card("K4")
+    from repro_torch.kernels import flash_attention as k4
+
+    BH, BK, Sq, Sk, hd, causal = case
+    g = torch.Generator(device="cuda").manual_seed(sum(case))
+    q, k, v = (torch.randn(s, generator=g, device="cuda").bfloat16()
+               for s in ((BH, Sq, hd), (BK, Sk, hd), (BK, Sk, hd)))
+    ops.reset_launches()
+    got = ops.flash_attention_rows(q, k, v, causal=causal)
+    again = ops.flash_attention_rows(q, k, v, causal=causal)
+    want = flash_attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= ATOL["bfloat16"], (case, err)
+    assert torch.equal(got, again)
+    assert ops.launches["flash"] == 2
+    assert k4.variant_launches == {"scalar": 0, "wgmma": 2}
+
+
+@pytest.mark.cuda
+def test_flash_variant_rule_and_counters():
+    """The source's static rule: bf16 with hd % 8 == 0 launches the wgmma
+    kernel, fp32 and other head dims the scalar one, each counted; a
+    forced variant that does not take the inputs and a misaligned pointer
+    raise instead of falling back."""
+    _need_card("K4")
+    from repro_torch.kernels import flash_attention as k4
+
+    cases = [(torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 40, "wgmma"),
+             (torch.float32, 64, "scalar"), (torch.bfloat16, 12, "scalar"),
+             (torch.float32, 12, "scalar")]
+    for dtype, hd, variant in cases:
+        assert k4.variant_of(dtype, hd) == variant
+        q, k, v = (torch.randn(2, 130, hd, device="cuda", dtype=dtype)
+                   for _ in range(3))
+        ops.reset_launches()
+        got = ops.flash_attention_rows(q, k, v, causal=True)
+        want = flash_attention_ref(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        dname = "bfloat16" if dtype == torch.bfloat16 else "float32"
+        assert float((got.float() - want.float()).abs().max()) <= ATOL[dname]
+        assert k4.variant_launches == {n: int(n == variant)
+                                       for n in k4.VARIANTS}, (dtype, hd)
+    q = torch.randn(1, 64, 64, device="cuda")
+    with pytest.raises(RuntimeError, match="wgmma"):
+        k4.flash_attention_cuda(q, q, q, variant="wgmma")
+    flat = torch.randn(64 * 64 + 1, device="cuda", dtype=torch.bfloat16)
+    q = flat[1:].view(1, 64, 64)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        k4.flash_attention_cuda(q, q, q)
+
+
 @pytest.mark.cuda
 def test_flash_model_layout_on_card():
     """The model-layout wrapper at batch 1 and 2 (GQA fold, strided view
