@@ -16,19 +16,31 @@ run outside a checkout of this repository.  Phases, one line each:
  2. K1 against its plain PyTorch version on the card, bit-equal, on
     windows of the wiki-vote-syn CSR at main-path shapes (B = 32768,
     D ∈ {128, 1024, 1917}, P ∈ {1, 2, 3}) in mask, count and signed mode;
+    then K1's row-sourced entry (`ops.level_expand_rows`, count and
+    signed mode, the candidates read from their CSR row in the kernel)
+    against its plain version, bit-equal, on rows of the same CSR at the
+    same shapes, with and without `own` and the comparisons;
  3. `repro_torch.launch.mine` on tiny-er for P1–P6, enum and --use-iep
     (plus the graphzero IEP plans of P1 and P4, which fold a tail);
     counts held to the reference oracle's values;
  4. full size, wiki-vote-syn (8,192 vertices, 79,597 edges): the
     triangle count on both paths; P1 on the kernel path under the
     graphpi plan, the graphzero plan with and without its IEP tail and
-    the naive plan (÷ |Aut|); both paths on a slice of the roots.  Then
-    small-rmat: P1 under the graphpi, graphzero and naive plans, enum
-    and IEP, on both paths;
+    the naive plan (÷ |Aut|); both paths on a slice of the roots, and
+    that slice on the kernel path under torch.profiler with the graphpi
+    and the graphzero IEP plans (device kernel time against unprofiled
+    wall, K1's time per kernel, top kernels).  Then small-rmat: P1 under
+    the graphpi, graphzero and naive plans, enum and IEP, on both paths;
  5. K1's launches in the named main-path runs: mask and count in the
     wiki-vote-syn P1 graphpi count, signed in the graphzero IEP count;
  6. K1's time per launch on the largest real main-path launch of each
-    mode, beside its plain version's and the card's bound.
+    mode, beside its plain version's and the card's bound; for count and
+    signed mode (the row-sourced kernel) also the composition it
+    replaced (the gathered window, the prefix columns concatenated, the
+    gathered-window kernel), all bit-equal on the same rows; then the
+    largest count and signed launch of each bucket width at every group
+    size of the row-sourced kernel (`group_sweep`; `k1_rows_sweep`
+    runs it on the root slice's launches alone).
 
  7. K4 against its plain PyTorch version on the card: the reference
     test's shapes, causal and bidirectional, bf16 and fp32, within the
@@ -203,6 +215,80 @@ def phase2(arrays, W, errs):
     return n_cases
 
 
+def rows_cases(arrays, rng, B, D, P):
+    """Rows of a real CSR for the row-sourced entry at one main-path
+    shape: each frontier row's candidates are the CSR row of a
+    degree-biased base vertex (bucket width D), its predecessors the base
+    (own = 0) and random neighbours of it; 5% of the predecessor rows
+    are emptied (an emptied base row empties the candidate row too),
+    three prefix values for comparisons and four prefix columns (the
+    base, a neighbour, a random vertex, the neighbour again)."""
+    import numpy as np
+    import torch
+
+    dev = arrays.flat.device
+    indptr = arrays.indptr.cpu().numpy()
+    deg = arrays.degrees.cpu().numpy()
+    nnz = int(indptr[-1])
+    flat_h = arrays.flat.cpu().numpy()
+    base = flat_h[rng.integers(0, nnz, B)]
+    us = [base]
+    for _ in range(P - 1):
+        pick = indptr[base] + (rng.random(B) * np.maximum(deg[base], 1)
+                               ).astype(np.int64)
+        us.append(np.where(deg[base] > 0, flat_h[pick], base))
+    us = np.stack(us)
+    starts = indptr[us].astype(np.int32)
+    lens = deg[us].astype(np.int32)
+    lens[rng.random((P, B)) < 0.05] = 0
+    extra = flat_h[rng.integers(0, nnz, (B, 3))]
+    neg = np.stack([base, us[-1], rng.integers(0, len(deg) - 1, B),
+                    us[-1]], axis=1)
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.int32,
+                               device=dev)
+
+    return dict(cstart=t(starts[0]), clen=t(lens[0]), starts=t(starts),
+                lens=t(lens), own=t(np.zeros(B)), extra=t(extra), neg=t(neg))
+
+
+def phase2_rows(arrays, W, errs):
+    """The row-sourced entry (count and signed mode) against its plain
+    version, bit-equal, at the main-path shapes: with and without `own`,
+    with and without the comparisons (>, <, !=)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import level_expand_rows_ref
+
+    rng = np.random.default_rng(20261)
+    n_cases = 0
+    for D in (128, 1024, 1917):
+        for P in (1, 2, 3):
+            c = rows_cases(arrays, rng, 32768, D, P)
+            for dirs in ((), (1, -1, 0)):
+                for signed in (False, True):
+                    for own in (c["own"], None):
+                        args = (arrays.flat, c["cstart"], c["clen"],
+                                arrays.flat, c["starts"], c["lens"], own,
+                                c["extra"] if dirs else None,
+                                c["neg"] if signed else None)
+                        kw = dict(dirs=dirs, width=D, window=W)
+                        got = ops.level_expand_rows(*args, **kw)
+                        want = level_expand_rows_ref(*args, **kw)
+                        torch.cuda.synchronize()
+                        errs.append(float((got.to(torch.int64) - want.to(
+                            torch.int64)).abs().max()))
+                        check(torch.equal(got, want),
+                              f"K1 rows != plain at B=32768 D={D} P={P} "
+                              f"dirs={dirs} signed={signed} "
+                              f"own={own is not None}")
+                        n_cases += 1
+    return n_cases
+
+
 # ------------------------------------------------------- phases 3-5 --
 def kernel_modes(plan) -> set:
     """K1 modes a count of `plan` launches on the kernel path, given live
@@ -227,33 +313,51 @@ def check_launches(what, launches, plan, use_kernel) -> None:
 
 
 class LaunchRecorder:
-    """Wraps `ops.level_expand` to keep, for each mode in `modes`, the
-    arguments of the largest launch (by B·D) of one count — the inputs
-    phase 6 times."""
+    """Wraps `ops.level_expand` (mask mode) and `ops.level_expand_rows`
+    (count and signed mode) to keep, for each mode in `modes`, the
+    arguments of the largest launch (by rows x width) of one count — the
+    inputs phase 6 times — and, for count and signed mode, of the
+    largest launch of each bucket width (keyed (mode, width))."""
 
     def __init__(self, ops, modes):
         self.ops = ops
-        self.real = ops.level_expand
+        self.real = (ops.level_expand, ops.level_expand_rows)
         self.modes = modes
         self.best = {}
 
-    def __call__(self, cand, flat, starts, lens, extra=None,
-                 cand_valid=None, **kw):
-        mode = ("mask" if not kw.get("count")
-                else "count" if kw.get("neg_from") is None else "signed")
-        size = cand.numel()
-        if mode in self.modes and size > self.best.get(mode, (0,))[0]:
-            keep = [None if a is None else a.clone()
-                    for a in (cand, starts, lens, extra, cand_valid)]
-            self.best[mode] = (size, keep, dict(kw))
-        return self.real(cand, flat, starts, lens, extra, cand_valid, **kw)
+    def keep(self, key, size, args, kw):
+        mode = key[0] if isinstance(key, tuple) else key
+        if mode in self.modes and size > self.best.get(key, (0,))[0]:
+            keep = [a.clone() if hasattr(a, "clone") else a for a in args]
+            self.best[key] = (size, keep, dict(kw))
+
+    def window(self, cand, flat, starts, lens, extra=None, cand_valid=None,
+               **kw):
+        if not kw.get("count"):
+            self.keep("mask", cand.numel(),
+                      (cand, starts, lens, extra, cand_valid), kw)
+        return self.real[0](cand, flat, starts, lens, extra, cand_valid,
+                            **kw)
+
+    def rows(self, csrc, cstart, clen, flat, starts, lens, own=None,
+             extra=None, neg=None, **kw):
+        mode = "count" if neg is None else "signed"
+        opts = dict(dirs=tuple(kw.get("dirs", ())), width=kw["width"],
+                    window=kw["window"])
+        for key in (mode, (mode, kw["width"])):      # largest, per bucket
+            self.keep(key, cstart.numel() * kw["width"],
+                      (csrc, cstart, clen, starts, lens, own, extra, neg),
+                      opts)
+        return self.real[1](csrc, cstart, clen, flat, starts, lens, own,
+                            extra, neg, **kw)
 
     def __enter__(self):
-        self.ops.level_expand = self
+        self.ops.level_expand = self.window
+        self.ops.level_expand_rows = self.rows
         return self
 
     def __exit__(self, *exc):
-        self.ops.level_expand = self.real
+        self.ops.level_expand, self.ops.level_expand_rows = self.real
         return False
 
 
@@ -352,6 +456,251 @@ def bound_of(cand, starts, lens, extra, valid, count, window):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def time_mask(best, arrays) -> dict:
+    """Phase 6, mask mode: the recorded launch through the gathered-window
+    kernel, checked bit-equal to its plain version, then timed beside it."""
+    import torch
+
+    from repro_torch.kernels import intersect
+    from repro_torch.kernels.ref import level_expand_ref
+
+    _, (cand, starts, lens, extra, valid), kw = best
+    args = (cand, arrays.flat, starts, lens, extra, valid)
+    opts = dict(dirs=tuple(kw["dirs"]), count=False, neg_from=None,
+                window=kw["window"])
+    got = intersect.level_expand_cuda(*args, **opts)
+    want = level_expand_ref(*args, **kw)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), "K1 != plain on recorded mask")
+    ms = time_ms(lambda: intersect.level_expand_cuda(*args, **opts))
+    plain_ms = time_ms(lambda: level_expand_ref(*args, **kw), iters=5)
+    bound_ms, bound_by = bound_of(cand, starts, lens, extra, valid, False,
+                                  kw["window"])
+    B, D = cand.shape
+    return {"what": f"B={B} D={D} P={starts.shape[0]} E={len(kw['dirs'])}",
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
+def group_sweep(best, arrays, card, tiles=None) -> None:
+    """The largest recorded count and signed launch of each bucket width
+    through the row-sourced kernel at every group size (threads per
+    frontier row) and each of `tiles` (int32 staged per lane and
+    buffer; default the launcher's), bit-equal to the plain version, and
+    timed: the measurement
+    behind the rule in `level_rows_group`."""
+    import torch
+
+    from repro_torch.kernels import intersect
+    from repro_torch.kernels.ref import level_expand_rows_ref
+
+    tiles = tiles or (intersect.TILE_PER_LANE,)
+    for key in sorted(k for k in best if isinstance(k, tuple)):
+        mode, width = key
+        _, (csrc, cstart, clen, starts, lens, own, extra, neg), kw = best[key]
+        args = (csrc, cstart, clen, arrays.flat, starts, lens, own, extra,
+                neg)
+        want = level_expand_rows_ref(*args, **kw)
+        ms = {}
+        for g in (8, 32, 256):
+            for tpl in tiles:
+                opts = dict(kw, group=g, tile_per_lane=tpl)
+                got = intersect.level_rows_cuda(*args, **opts)
+                torch.cuda.synchronize()
+                check(torch.equal(got, want),
+                      f"K1 rows {mode} width={width}: {opts} != plain")
+                ms[(g, tpl)] = time_ms(lambda: intersect.level_rows_cuda(
+                    *args, **opts))
+        log(f"phase 6: K1 {mode} width={width} B={cstart.numel()}: ms by "
+            f"(threads per row, tile per lane) " + " ".join(
+                f"{g}/{tpl}:{t:.4f}" for (g, tpl), t in ms.items())
+            + f" (rule: {intersect.load().level_rows_group(width)}/"
+            f"{intersect.TILE_PER_LANE}) on {card}")
+
+
+def k1_rows_sweep(card, tiles=(8, 16, 24, 32)) -> None:
+    """`group_sweep` on the launches of the wiki-vote-syn P1 root slice
+    (graphpi and graphzero IEP plans, kernel path): a quick look at the
+    row-sourced kernel's launch shapes without the whole counts."""
+    from repro_torch.configs.graphpi import get_dataset, get_pattern
+    from repro_torch.core.executor import (ExecutorConfig, auto_buckets,
+                                           compute_stats, device_graph)
+    from repro_torch.kernels import ops
+    from repro_torch.query.cache import plan_for
+
+    wiki = get_dataset("wiki-vote-syn")
+    arrays = device_graph(wiki, "cuda")
+    cfg = ExecutorConfig(capacity=WIKI_CAPACITY,
+                         degree_buckets=auto_buckets(wiki))
+    stats = compute_stats(wiki, cfg, device="cuda", arrays=arrays)
+    best = {}
+    for mode, iep in (("graphpi", False), ("graphzero", True)):
+        _, plan = plan_for(get_pattern("P1"), stats, mode=mode, use_iep=iep)
+        rec = LaunchRecorder(ops, ("count", "signed"))
+        _, wall, _, _, _ = count_on(f"sweep {mode}", wiki, plan, cfg, arrays,
+                                    roots=WIKI_ROOTS, during=rec)
+        log(f"sweep: {mode}{' iep' if iep else ''} roots {WIKI_ROOTS}: "
+            f"wall={wall:.3f}s")
+        best.update(rec.best)
+    group_sweep(best, arrays, card, tiles)
+
+
+def composition(csrc, cstart, clen, flat, starts, lens, own, extra, neg,
+                *, dirs, width, window):
+    """What the row-sourced kernel replaced on the main path: the window
+    gathered at `width` (plus, in signed mode, the prefix columns
+    concatenated), then the gathered-window kernel through
+    `ops.level_expand`."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import gather_window
+
+    cand, ok = gather_window(csrc, cstart, clen, width)
+    if neg is not None:
+        cand = torch.cat([cand, neg], dim=1)
+        ok = torch.cat([ok, torch.ones(neg.shape, dtype=torch.bool,
+                                       device=ok.device)], dim=1)
+    return ops.level_expand(cand, flat, starts, lens, extra, ok, dirs=dirs,
+                            count=True, window=window,
+                            neg_from=None if neg is None else width)
+
+
+def time_rows(mode, best, arrays, W) -> dict:
+    """Phase 6, count and signed mode: the recorded launch through the
+    row-sourced kernel, the composition it replaced and the plain
+    version, all bit-equal, then timed in that order on the same rows."""
+    import torch
+
+    from repro_torch.kernels import intersect
+    from repro_torch.kernels.ref import level_expand_rows_ref
+
+    _, (csrc, cstart, clen, starts, lens, own, extra, neg), kw = best
+    args = (csrc, cstart, clen, arrays.flat, starts, lens, own, extra, neg)
+    got = intersect.level_rows_cuda(*args, **kw)
+    comp = composition(*args, **kw)
+    want = level_expand_rows_ref(*args, **kw)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), f"K1 rows != plain on recorded {mode}")
+    check(torch.equal(comp, want),
+          f"composition != plain on recorded {mode}")
+    ms = time_ms(lambda: intersect.level_rows_cuda(*args, **kw))
+    comp_ms = time_ms(lambda: composition(*args, **kw))
+    plain_ms = time_ms(lambda: level_expand_rows_ref(*args, **kw), iters=5)
+    bound_ms, bound_by = rows_bound_of(*args, **kw)
+    P, B = starts.shape
+    Q = 0 if neg is None else neg.shape[1]
+    group = intersect.load().level_rows_group(kw["width"])
+    return {"what": f"B={B} width={kw['width']} P={P} Q={Q} "
+                    f"E={len(kw['dirs'])} group={group}",
+            "ms": ms, "composition_ms": comp_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def rows_bound_of(csrc, cstart, clen, flat, starts, lens, own, extra, neg,
+                  *, dirs, width, window):
+    """Least time for one launch of the row-sourced kernel.  Bytes: the
+    per-row inputs (cstart, clen, starts/lens, own, extra, neg) and the
+    int32 output once each, and each distinct CSR row the launch must
+    read once (candidate rows; predecessor rows other than own; own rows
+    too where prefix columns are searched there), over HBM bandwidth.
+    Operations: a full binary search of each candidate left by the > / <
+    comparisons in each other row plus its != compares, a search per
+    comparison to cut the range, and a search of each prefix column in
+    every row plus its compares, over the cores' rate.  Returns (ms,
+    "bytes" or "operations")."""
+    import torch
+
+    from repro_torch.kernels.ref import gather_window
+
+    P, B = starts.shape
+    Q = 0 if neg is None else neg.shape[1]
+    E = len(dirs)
+    dev = cstart.device
+    n_own = 0 if own is None else 1
+    own = (torch.full((B,), -1, dtype=torch.int32, device=dev)
+           if own is None else own)
+    plen = lens.clamp(min=0, max=window)
+    clen_w = clen.clamp(min=0, max=width)
+    searched = torch.arange(P, device=dev)[:, None] != own[None, :]
+    keys = [(cstart.to(torch.int64) << 32) | clen_w.to(torch.int64)]
+    pkeys = (starts.to(torch.int64) << 32) | plen.to(torch.int64)
+    keys.append(pkeys[searched] if Q == 0 else pkeys.reshape(-1))
+    rows = int((torch.unique(torch.cat(keys)) & 0xFFFFFFFF).sum())
+    nbytes = (4 * B * (2 + 2 * P + n_own + E + Q + 1)
+              + 4 * rows)
+    cand, ok = gather_window(csrc, cstart, clen, width)
+    for e, d in enumerate(dirs):
+        if d:
+            ev = extra[:, e][:, None]
+            ok &= (cand > ev) if d > 0 else (cand < ev)
+    n_in = ok.sum(dim=1).double()
+    steps = torch.ceil(torch.log2(plen.double() + 1))
+    other = (steps * searched).sum(dim=0)
+    n_range = sum(1 for d in dirs if d)
+    n_ne = E - n_range
+    compares = float((n_in * (other + n_ne)).sum()
+                     + n_range * torch.ceil(torch.log2(
+                         clen_w.double() + 1)).sum()
+                     + Q * (steps.sum(dim=0) + E).sum())
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = compares / CORE_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def profile_count(what, graph, plan, cfg, arrays, roots, want, card):
+    """One count of the roots `roots` on the kernel path, run once
+    unprofiled (host clock ending in a synchronize) and once under
+    torch.profiler; both must equal `want` (None: each other, since a
+    root slice's count depends on the plan's restrictions).  Prints the
+    device kernels'
+    summed time against the unprofiled wall (the busy share; the
+    profiler's own overhead inflates its window), K1's time per kernel
+    (the gathered-window kernel: mask mode; the row-sourced kernel:
+    count or signed mode) and the kernels that took the most."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.executor import CountState, Matcher
+
+    m = Matcher(graph, plan, cfg, arrays=arrays, device="cuda")
+    m.warmup()
+
+    def run():
+        state = CountState(spans=[(*roots, cfg.capacity)],
+                           chunk=cfg.capacity)
+        _, res = m.count_partial(state)
+        torch.cuda.synchronize()
+        check(res is not None and not res.overflowed, f"{what} overflowed")
+        return res.count
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = run()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        again = run()
+    check(got == again and want in (None, got),
+          f"{what}: unprofiled {got}, profiled {again}, want {want}")
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    log(f"profile {what}: device kernels {busy_ms:.3f} ms in "
+        f"{sum(e.count for e in kern)} launches; unprofiled wall "
+        f"{wall_ms:.3f} ms; busy share {100 * busy_ms / wall_ms:.1f}% "
+        f"on {card}")
+    for name in ("level_expand_kernel", "level_rows_kernel"):
+        ev = [e for e in kern if name in e.key]
+        log(f"profile {what}: K1 {name}: "
+            f"{sum(e.self_device_time_total for e in ev) / 1e3:.3f} ms in "
+            f"{sum(e.count for e in ev)} launches")
+    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:10]:
+        log(f"profile {what}:   {e.self_device_time_total / 1e3:9.3f} "
+            f"ms  x{e.count:<6d} {e.key[:80]}")
+
+
 # ------------------------------------------------------------ K4 -----
 # The reference test's shapes (tests/test_flash_kernel.py:16-22):
 # (BH, BK, Sq, Sk, hd); and the qwen3-1.7b serving shape (batch 4 x 16
@@ -433,13 +782,10 @@ def check_k4(errs) -> int:
 def graph_phases(card) -> list:
     """Phases 2-6: K1 against its plain version, the counting path end
     to end, K1's launches and times.  Returns K1's kernel records."""
-    import torch
-
     from repro_torch.configs.graphpi import get_dataset, get_pattern
     from repro_torch.core.executor import (ExecutorConfig, auto_buckets,
                                            device_graph, triangle_plan)
-    from repro_torch.kernels import intersect, ops
-    from repro_torch.kernels.ref import level_expand_ref
+    from repro_torch.kernels import ops
     from repro_torch.launch import mine
     from repro_torch.query.cache import plan_for
 
@@ -454,6 +800,11 @@ def graph_phases(card) -> list:
     n_cases = phase2(arrays, W, errs)
     log(f"phase 2: K1 == plain version on {n_cases} cases "
         f"(mask/count/signed, P=1..3, D=128/1024/1917) "
+        f"in {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    n_cases = phase2_rows(arrays, W, errs)
+    log(f"phase 2: K1 rows (count/signed) == plain version on {n_cases} "
+        f"cases (P=1..3, D=128/1024/1917, own or not, comparisons or not) "
         f"in {time.perf_counter() - t0:.1f}s")
 
     # ---- 3: the mine entry point on tiny-er.  Every run of the main
@@ -563,6 +914,14 @@ def graph_phases(card) -> list:
     check(part["kernel"] == part["portable"] > 0,
           f"P1 root slice: kernel {part['kernel']} != "
           f"portable {part['portable']}")
+    # The counting path under torch.profiler: the root slice on the
+    # kernel path, under the graphpi plan and the graphzero IEP plan.
+    for mode, iep in (("graphpi", False), ("graphzero", True)):
+        _, plan = plan_for(house, stats, mode=mode, use_iep=iep)
+        profile_count(f"wiki-vote-syn P1 {mode}{' iep' if iep else ''} "
+                      f"roots {WIKI_ROOTS}", wiki, plan, cfgs["kernel"],
+                      arrays, WIKI_ROOTS,
+                      part["kernel"] if mode == "graphpi" else None, card)
     # ---- 4b: small-rmat, every P1 plan on both paths gives one count
     small = get_dataset("small-rmat")
     sarrays = device_graph(small, "cuda")
@@ -604,34 +963,22 @@ def graph_phases(card) -> list:
     kernels = []
     for mode in ("mask", "count", "signed"):
         check(mode in best, f"no recorded {mode} launch")
-        _, (cand, starts, lens, extra, valid), kw = best[mode]
-        args = (cand, arrays.flat, starts, lens, extra, valid)
-        got = intersect.level_expand_cuda(*args, dirs=tuple(kw["dirs"]),
-                                          count=kw["count"],
-                                          neg_from=kw.get("neg_from"),
-                                          window=kw["window"])
-        want = level_expand_ref(*args, **kw)
-        torch.cuda.synchronize()
-        check(torch.equal(got, want), f"K1 != plain on recorded {mode}")
+        rec = time_mask(best[mode], arrays) if mode == "mask" \
+            else time_rows(mode, best[mode], arrays, W)
         errs.append(0.0)
-        ms = time_ms(lambda: intersect.level_expand_cuda(
-            *args, dirs=tuple(kw["dirs"]), count=kw["count"],
-            neg_from=kw.get("neg_from"), window=kw["window"]))
-        plain_ms = time_ms(lambda: level_expand_ref(*args, **kw), iters=5)
-        bound_ms, bound_by = bound_of(cand, starts, lens, extra, valid,
-                                      kw["count"], kw["window"])
-        B, D = cand.shape
-        log(f"phase 6: K1 {mode}: B={B} D={D} P={starts.shape[0]} "
-            f"E={len(kw['dirs'])} ms={ms:.4f} plain_ms={plain_ms:.4f} "
-            f"bound_ms={bound_ms:.4f} ({bound_by}) on {card}")
+        log(f"phase 6: K1 {mode}: {rec.pop('what')} ms={rec['ms']:.4f} "
+            + (f"composition_ms={rec.pop('composition_ms'):.4f} "
+               if "composition_ms" in rec else "")
+            + f"plain_ms={rec['plain_ms']:.4f} "
+            f"bound_ms={rec['bound_ms']:.4f} ({rec['bound_by']}) on {card}")
         kernels.append({
             "name": f"level_expand.{mode}", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/level_expand.cu",
             "replaces": "src/repro/kernels/intersect.py:220",
             "launches": main_launches[mode][0], "max_abs_err": max(errs),
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None,
+            **rec, "library_ms": None,
         })
+    group_sweep(best, arrays, card)
     return kernels
 
 
@@ -1313,8 +1660,8 @@ def build_kernels() -> None:
             if "wgmma::" in name:
                 check(st == ld == 0, f"{name} spills ({st} / {ld} bytes)")
         for line in text.splitlines():
-            if "wgmma" in line and ("C75" in line or "arning" in line):
-                log(f"phase 1: ptxas note: {line.strip()[:160]}")
+            if ("wgmma" in line and "C75" in line) or "arning" in line:
+                log(f"phase 1: compiler note: {line.strip()[:160]}")
 
 
 def main() -> int:

@@ -12,7 +12,9 @@ GraphPi's nested-loop DFS as level-synchronous frontier expansion.
    and the IEP-tail cardinalities.  On the kernel path the whole level
    (membership against all predecessors + restriction + injectivity
    masks, reduced to a mask or a popcount) is one launch of the CUDA
-   kernel K1 (`kernels/ops.level_expand`); the portable path is a
+   kernel K1: `kernels/ops.level_expand` over the gathered window for
+   the mask, `ops.level_expand_rows` for popcounts, which reads the
+   candidates from the base's CSR row itself; the portable path is a
    vectorized binary search over flat CSR segments plus torch masks;
  * compaction is a cumsum scatter (stream compaction);
  * labeled plans prune candidates at the gather (per-label CSR
@@ -45,6 +47,7 @@ from ..device import resolve_device
 from ..graph.csr import GraphCSR
 from ..kernels import ops
 from ..kernels.ref import bs_iters as _bs_iters
+from ..kernels.ref import gather_window as _gather_window
 from ..kernels.ref import segment_member as _segment_member
 from ..obs import get_tracer
 from .pattern import clique
@@ -175,23 +178,22 @@ def _make_count_fn(plan: MatchingPlan, W: int, iters: int,
 
     arangeC = torch.arange(C, dtype=I32, device=dev)
 
-    def gather_window(flat, indptr, degrees, base, width, *, labs=None,
+    def window_source(flat, indptr, degrees, base, *, labs=None,
                       label=None):
-        """Candidate window at `base` (per-label segment for a labeled
-        position).  Windows of the last rows may run past the array:
-        indices clamp to its end, and `ok` masks those columns."""
-        cols = torch.arange(width, dtype=I32, device=dev)
+        """The candidate row at `base` as (array, offsets, lengths): the
+        CSR row, or its per-label segment for a labeled position."""
         if label is not None:
             _, lab_starts, lab_lens, lab_flat = labs
-            start = lab_starts[base, label]
-            src, length = lab_flat, lab_lens[base, label]
-        else:
-            start = indptr[base]
-            src, length = flat, degrees[base]
-        idx = (start[:, None] + cols[None, :]).clamp_(max=src.shape[0] - 1)
-        cand = src[idx]
-        ok = cols[None, :] < length[:, None]
-        return cand, ok
+            return lab_flat, lab_starts[base, label], lab_lens[base, label]
+        return flat, indptr[base], degrees[base]
+
+    def gather_window(flat, indptr, degrees, base, width, *, labs=None,
+                      label=None):
+        """Candidate window at `base`.  Windows of the last rows may run
+        past the array: indices clamp to its end, and `ok` masks those
+        columns."""
+        return _gather_window(*window_source(flat, indptr, degrees, base,
+                                             labs=labs, label=label), width)
 
     def base_degrees(degrees, pv, *, labs=None, label=None):
         if label is not None:
@@ -199,35 +201,45 @@ def _make_count_fn(plan: MatchingPlan, W: int, iters: int,
         return degrees[pv]
 
     def pick_base(emb, degrees, preds, *, labs=None, label=None):
+        """(base vertex, its index among `preds`) per row."""
         pv = emb[:, list(preds)]                       # [C, P]
         if not cfg.dynamic_base or len(preds) == 1:
-            return pv[:, -1]
+            return pv[:, -1], torch.full((pv.shape[0],), len(preds) - 1,
+                                         dtype=I32, device=dev)
         dg = base_degrees(degrees, pv, labs=labs, label=label)
         sel = torch.argmin(dg, dim=1)                  # first minimum
-        return torch.take_along_dim(pv, sel[:, None], dim=1)[:, 0]
+        return (torch.take_along_dim(pv, sel[:, None], dim=1)[:, 0],
+                sel.to(I32))
 
     def level_extras(i):
         """Restriction + injectivity comparisons at position i as
         ((emb column, dir), ...); dir ∈ {+1: >, -1: <, 0: !=}."""
         return tuple(plan.restr[i]) + tuple((j, 0) for j in plan.neqs[i])
 
-    def expand_core(emb, base, preds, extras, indptr, degrees, flat,
+    def expand_core(emb, base, own, preds, extras, indptr, degrees, flat,
                     width, *, want_counts=False, labs=None, label=None):
         """THE per-level admissibility core over rows that are all live
         (the caller expands only the selected rows).  Returns
-        (cand, mask), or per-row int32 counts when `want_counts`."""
-        cand, mask = gather_window(flat, indptr, degrees, base, width,
-                                   labs=labs, label=label)
+        (cand, mask), or per-row int32 counts when `want_counts`.  `own`
+        = base's index among `preds`: the kernel's count mode reads the
+        candidates from base's row and never searches that row."""
         if use_kernel and len(preds) > 1:
             us = emb[:, list(preds)].T.contiguous()               # [P, B]
-            res = ops.level_expand(
-                cand, flat, indptr[us], degrees[us],
-                emb[:, [c for c, _ in extras]] if extras else None,
-                mask,
-                dirs=tuple(d for _, d in extras), count=want_counts,
-                window=W,
-            )
-            return res if want_counts else (cand, res)
+            ex = emb[:, [c for c, _ in extras]] if extras else None
+            dirs = tuple(d for _, d in extras)
+            if want_counts:
+                return ops.level_expand_rows(
+                    *window_source(flat, indptr, degrees, base, labs=labs,
+                                   label=label),
+                    flat, indptr[us], degrees[us], own, ex, dirs=dirs,
+                    width=width, window=W)
+            cand, mask = gather_window(flat, indptr, degrees, base, width,
+                                       labs=labs, label=label)
+            return cand, ops.level_expand(
+                cand, flat, indptr[us], degrees[us], ex, mask, dirs=dirs,
+                window=W)
+        cand, mask = gather_window(flat, indptr, degrees, base, width,
+                                   labs=labs, label=label)
         if len(preds) > 1:
             for p in preds:
                 u = emb[:, p]
@@ -287,7 +299,8 @@ def _make_count_fn(plan: MatchingPlan, W: int, iters: int,
         preds = plan.preds[i]
         extras = level_extras(i)
         label = vlabels[i]
-        base_all = pick_base(emb, degrees, preds, labs=labs, label=label)
+        base_all, own_all = pick_base(emb, degrees, preds, labs=labs,
+                                      label=label)
         db = base_degrees(degrees, base_all, labs=labs, label=label)
         last_enum = (plan.iep is None) and (i == n - 1)
         parent = torch.zeros((C + 1,), dtype=I32, device=dev)
@@ -305,14 +318,14 @@ def _make_count_fn(plan: MatchingPlan, W: int, iters: int,
                 sub_base = base_all[idx]
                 if last_enum:
                     cnts = expand_core(
-                        sub_emb, sub_base, preds, extras, indptr, degrees,
-                        flat, width, want_counts=True, labs=labs,
-                        label=label)
+                        sub_emb, sub_base, own_all[idx], preds, extras,
+                        indptr, degrees, flat, width, want_counts=True,
+                        labs=labs, label=label)
                     total_cnt += cnts.sum(dtype=I64)
                     continue
                 cand, mask = expand_core(
-                    sub_emb, sub_base, preds, extras, indptr, degrees, flat,
-                    width, labs=labs, label=label)
+                    sub_emb, sub_base, None, preds, extras, indptr, degrees,
+                    flat, width, labs=labs, label=label)
                 # stream-compact surviving (row, cand) pairs behind
                 # `offset`; pairs past capacity land in the sentinel slot
                 flat_mask = mask.reshape(-1)
@@ -330,21 +343,17 @@ def _make_count_fn(plan: MatchingPlan, W: int, iters: int,
         needed = torch.maximum(needed, offset)
         return new_emb, new_valid, needed
 
-    def iep_card_fused(sub_emb, sub_base, U, indptr, degrees, flat, width):
+    def iep_card_fused(sub_emb, sub_base, sub_own, U, indptr, degrees, flat,
+                       width):
         """One IEP-term cardinality — |window ∩ (∩_q N(v_q))| minus the
         prefix-vertex corrections — in ONE kernel launch: the assigned
-        prefix vertices ride along as negatively-weighted candidate
-        columns (`neg_from`), so the signed popcount is raw − corr."""
-        cand, ok = gather_window(flat, indptr, degrees, sub_base, width)
-        comb = torch.cat([cand, sub_emb], dim=1)
-        cvalid = torch.cat(
-            [ok, torch.ones(sub_emb.shape, dtype=torch.bool, device=dev)],
-            dim=1)
+        prefix vertices ride along as negatively-weighted columns
+        (`neg`), so the signed popcount is raw − corr."""
         us = sub_emb[:, list(U)].T.contiguous()                   # [P, B]
-        signed = ops.level_expand(
-            comb, flat, indptr[us], degrees[us], None, cvalid,
-            dirs=(), count=True, neg_from=width, window=W,
-        )
+        signed = ops.level_expand_rows(
+            *window_source(flat, indptr, degrees, sub_base), flat,
+            indptr[us], degrees[us], sub_own, None, sub_emb, width=width,
+            window=W)
         return signed.to(I64)
 
     def iep_value(emb, valid, indptr, degrees, flat):
@@ -354,7 +363,7 @@ def _make_count_fn(plan: MatchingPlan, W: int, iters: int,
         cards = []
         needed_extra = torch.zeros((), dtype=I64, device=dev)
         for U in iep.unions:
-            base = pick_base(emb, degrees, U)
+            base, own = pick_base(emb, degrees, U)
             db = degrees[base]
             card = torch.zeros((C,), dtype=I64, device=dev)
             for bi, width, cap, lo, is_last in bucket_ranges():
@@ -368,11 +377,11 @@ def _make_count_fn(plan: MatchingPlan, W: int, iters: int,
                     sub_emb = emb[idx]
                     sub_base = base[idx]
                     if use_kernel:
-                        val = iep_card_fused(sub_emb, sub_base, U, indptr,
-                                             degrees, flat, width)
+                        val = iep_card_fused(sub_emb, sub_base, own[idx], U,
+                                             indptr, degrees, flat, width)
                     else:
                         val = expand_core(
-                            sub_emb, sub_base, U, (), indptr, degrees,
+                            sub_emb, sub_base, None, U, (), indptr, degrees,
                             flat, width, want_counts=True).to(I64)
                         # subtract already-assigned prefix vertices inside
                         # the intersection (injectivity w.r.t. outer loops)

@@ -1,21 +1,24 @@
 """Public wrappers of kernels K1–K4.
 
 Counterpart of `repro/kernels/ops.py`.  `level_expand` (K1, with the
-reference's padding contract), `sorted_membership` (K2) and
-`intersect_count` (K3) over stacked sorted rows, and `flash_attention`
-(K4, in the model's [B, S, heads, hd] layout) dispatch on where their
-tensors lie: CUDA tensors go to the hand-written kernels
-(`intersect.level_expand_cuda`, `membership.membership_cuda`,
+reference's padding contract) and `level_expand_rows` (K1's count and
+signed mode, candidates read from their CSR row), `sorted_membership`
+(K2) and `intersect_count` (K3) over stacked sorted rows, and
+`flash_attention` (K4, in the model's [B, S, heads, hd] layout)
+dispatch on where their tensors lie: CUDA tensors go to the
+hand-written kernels (`intersect.level_expand_cuda`,
+`intersect.level_rows_cuda`, `membership.membership_cuda`,
 `flash_attention.flash_attention_cuda`), CPU tensors to the plain
-PyTorch versions (`ref.level_expand_ref`,
+PyTorch versions (`ref.level_expand_ref`, `ref.level_expand_rows_ref`,
 `ref.membership_ref_searchsorted`, `ref.intersect_count_plain`,
 `ref.flash_attention_ref`).  They never fall back from one to the
 other: a build or launch failure raises.
 
 `launches` counts kernel launches: K1 per mode (`mask`, `count`,
-`signed`), K2 as `membership`, K3 as `intersect_count`, K4 as `flash`
-(and per K4 kernel in `flash_attention.variant_launches`).  A count
-moves only where its CUDA kernel is launched.
+`signed`, whichever entry launched it), K2 as `membership`, K3 as
+`intersect_count`, K4 as `flash` (and per K4 kernel in
+`flash_attention.variant_launches`).  A count moves only where its CUDA
+kernel is launched.
 """
 from __future__ import annotations
 
@@ -23,9 +26,10 @@ import torch
 
 from . import flash_attention as _k4
 from . import membership as _k23
-from .intersect import level_expand_cuda, load
+from .intersect import level_expand_cuda, level_rows_cuda, load
 from .ref import (flash_attention_ref, intersect_count_plain,
-                  level_expand_ref, membership_ref_searchsorted)
+                  level_expand_ref, level_expand_rows_ref,
+                  membership_ref_searchsorted)
 
 CAND_PAD = -1
 NBR_PAD = torch.iinfo(torch.int32).max
@@ -162,6 +166,81 @@ def level_expand(
     mode = "mask" if not count else ("count" if neg_from is None
                                      else "signed")
     launches[mode] += 1
+    return out
+
+
+def level_expand_rows(
+    csrc: torch.Tensor,                      # [F'] candidate rows' array
+    cstart: torch.Tensor,                    # [B] candidate row offsets
+    clen: torch.Tensor,                      # [B] candidate row lengths
+    flat: torch.Tensor,                      # [F] flat CSR indices array
+    starts: torch.Tensor,                    # [P, B] CSR row offsets
+    lens: torch.Tensor,                      # [P, B] valid row lengths
+    own: torch.Tensor | None = None,         # [B] row holding the cands
+    extra: torch.Tensor | None = None,       # [B, E] prefix-vertex values
+    neg: torch.Tensor | None = None,         # [B, Q] signed-mode columns
+    *,
+    dirs: tuple = (),
+    width: int,
+    window: int,
+) -> torch.Tensor:
+    """K1's count (`neg` None) and signed mode with the candidates read
+    from their row: int32 [B], equal bit for bit to the gathered window
+    `cand = csrc[cstart[b] : + width]` (columns d < clen[b] valid), with
+    `neg` appended in signed mode, through `level_expand(..., count=True,
+    neg_from=width)`.
+
+    Contracts: each candidate row csrc[cstart[b] : + min(clen[b],
+    width)] lies inside `csrc` and is strictly increasing, as are the
+    predecessor rows (`level_expand`'s contract, `window` ≥ every
+    lens[p, b]); own[b] ∈ [-1, P) names a predecessor whose row holds
+    every candidate of row b (-1: none), so the kernel skips searching
+    it.  All integer inputs are int32, contiguous and on `csrc`'s
+    device; an `own` outside [-1, P) is refused (one read of its range
+    on the host)."""
+    for name, t in (("csrc", csrc), ("flat", flat)):
+        if isinstance(t, torch.Tensor) and t.dim() != 1:
+            raise ValueError(f"{name} must be 1-D, got {tuple(t.shape)}")
+    if not isinstance(starts, torch.Tensor) or starts.dim() != 2 \
+            or starts.shape[0] < 1:
+        raise ValueError("starts must be a [P>=1, B] tensor")
+    P, B = starts.shape
+    dev = csrc.device if isinstance(csrc, torch.Tensor) else None
+    _check("csrc", csrc, torch.int32, None, dev)
+    _check("cstart", cstart, torch.int32, (B,), dev)
+    _check("clen", clen, torch.int32, (B,), dev)
+    _check("flat", flat, torch.int32, None, dev)
+    _check("starts", starts, torch.int32, (P, B), dev)
+    _check("lens", lens, torch.int32, (P, B), dev)
+    if own is not None:
+        _check("own", own, torch.int32, (B,), dev)
+    dirs = tuple(int(d) for d in dirs)
+    if dirs:
+        if extra is None:
+            raise ValueError("dirs given without extra")
+        _check("extra", extra, torch.int32, (B, len(dirs)), dev)
+    else:
+        extra = None
+    if neg is not None:
+        if neg.dim() != 2:
+            raise ValueError(f"neg must be [B, Q], got {tuple(neg.shape)}")
+        _check("neg", neg, torch.int32, (B, neg.shape[1]), dev)
+    if int(width) < 0:
+        raise ValueError(f"width must be >= 0, got {width}")
+    if own is not None and B:
+        lo, hi = (int(v) for v in torch.aminmax(own))
+        if lo < -1 or hi >= P:
+            raise ValueError(f"own outside [-1, {P}): [{lo}, {hi}]")
+
+    if _route(dev) == "plain":
+        return level_expand_rows_ref(csrc, cstart, clen, flat, starts, lens,
+                                     own, extra, neg, dirs=dirs, width=width,
+                                     window=window)
+    if B == 0:
+        return torch.zeros((0,), dtype=torch.int32, device=dev)
+    out = level_rows_cuda(csrc, cstart, clen, flat, starts, lens, own, extra,
+                          neg, dirs=dirs, width=width, window=window)
+    launches["count" if neg is None else "signed"] += 1
     return out
 
 

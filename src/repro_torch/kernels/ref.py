@@ -123,6 +123,48 @@ def level_expand_ref(
     return mask.sum(dim=1, dtype=torch.int32)
 
 
+def gather_window(src: torch.Tensor, start: torch.Tensor,
+                  length: torch.Tensor, width: int):
+    """Each row's candidate window, as the executor gathers it:
+    cand[b, d] = src[start[b] + d] for d < width, indices clamped to the
+    array's end, and ok[b, d] = d < length[b]."""
+    cols = torch.arange(width, dtype=torch.int32, device=src.device)
+    idx = (start[:, None] + cols[None, :]).clamp_(max=src.shape[0] - 1)
+    return src[idx], cols[None, :] < length[:, None]
+
+
+def level_expand_rows_ref(
+    csrc: torch.Tensor,                      # [F'] int32 candidate rows
+    cstart: torch.Tensor,                    # [B] int32 row offsets
+    clen: torch.Tensor,                      # [B] int32 row lengths
+    flat: torch.Tensor,                      # [F] int32 flat CSR indices
+    starts: torch.Tensor,                    # [P, B] int32
+    lens: torch.Tensor,                      # [P, B] int32
+    own: torch.Tensor | None = None,         # [B] int32
+    extra: torch.Tensor | None = None,       # [B, E] int32
+    neg: torch.Tensor | None = None,         # [B, Q] int32
+    *,
+    dirs: tuple = (),
+    width: int,
+    window: int,
+) -> torch.Tensor:
+    """Plain version of K1's row-sourced count and signed mode
+    (`level_rows_kernel`, kernels/csrc/level_expand.cu): the candidate
+    window gathered at `width`, the prefix columns `neg` appended in
+    signed mode, then `level_expand_ref` in count mode with neg_from =
+    width.  `own` is the caller's promise that row own[b] holds every
+    candidate; this version searches that row all the same."""
+    cand, ok = gather_window(csrc, cstart, clen, width)
+    neg_from = None
+    if neg is not None:
+        cand = torch.cat([cand, neg], dim=1)
+        ok = torch.cat([ok, torch.ones(neg.shape, dtype=torch.bool,
+                                       device=ok.device)], dim=1)
+        neg_from = width
+    return level_expand_ref(cand, flat, starts, lens, extra, ok, dirs=dirs,
+                            count=True, neg_from=neg_from, window=window)
+
+
 # ------------------------------------------------------------ attention ---
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True,

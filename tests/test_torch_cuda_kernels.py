@@ -277,3 +277,179 @@ def test_membership_kernel_tile_invariance(tile):
     for bb, bd, bl in ((8, 128, 128), (8, 128, 256), (16, 256, 128)):
         assert torch.equal(ops.sorted_membership(
             c_d, n_d, block_b=bb, block_d=bd, block_l=bl), want_m)
+
+
+# ------------------------------------------- K1, row-sourced count mode ---
+def rows_case(seed, B, P, *, width, window, L, Q=0, label=False,
+              vmax=None, own_frac=0.75):
+    """numpy inputs of `ops.level_expand_rows`, shaped as the executor
+    gives them: a pool of strictly increasing rows (some empty, some of
+    exactly `L` entries, some longer than `window`, some spanning the
+    whole value range) in one flat array with the sentinel pad; each
+    frontier row picks P of them, and its candidates are the row of the
+    predecessor `own[b]` (a random subset of it in a separate array when
+    `label`), or, where own[b] = -1, any pool row.  Empty candidate rows,
+    comparisons (>, <, !=) whose ranges are empty, partial or whole, and
+    Q prefix columns holding common members, members of the candidate
+    row, random values and duplicates.  `width` <= `window`, so a row's
+    first `width` entries lie in its first `window` ones."""
+    from repro_torch.kernels.ops import NBR_PAD, flat_gather_pad
+
+    rng = np.random.default_rng(seed)
+    vmax = vmax or 3 * L
+    n_rows = max(8, B // 3)
+    lens_pool = rng.integers(0, L + 1, size=n_rows)
+    lens_pool[rng.random(n_rows) < 0.1] = 0
+    lens_pool[:3] = [L, L - 1, min(L + 1, vmax)]
+    rows = []
+    for r, n in enumerate(lens_pool):
+        row = np.sort(rng.choice(vmax, size=int(n), replace=False))
+        if r % 5 == 4 and n >= 2:                  # spans the value range
+            row[0], row[-1] = 0, vmax - 1
+            row = np.unique(row)
+        rows.append(row.astype(np.int32))
+    offs = np.concatenate([[0], np.cumsum([len(r) for r in rows])])
+    flat = np.concatenate(rows + [np.full(flat_gather_pad(), NBR_PAD,
+                                          np.int32)]).astype(np.int32)
+    pick = rng.integers(0, n_rows, size=(P, B))
+    starts = offs[pick].astype(np.int32)
+    lens = np.array([[len(rows[r]) for r in pr] for pr in pick], np.int32)
+    own = np.where(rng.random(B) < own_frac, rng.integers(0, P, size=B),
+                   -1).astype(np.int32)
+    src_rows = [rows[pick[o, b]] if o >= 0 else rows[rng.integers(n_rows)]
+                for b, o in enumerate(own)]
+    if label:                 # labeled subsets of the searched prefix
+        src_rows = [r[:window][rng.random(min(len(r), window)) < 0.6]
+                    for r in src_rows]
+    src_rows = [r if rng.random() > 0.05 else r[:0] for r in src_rows]
+    if label or (own < 0).any():
+        coffs = np.concatenate([[0], np.cumsum([len(r) for r in src_rows])])
+        csrc = np.concatenate(src_rows + [np.full(flat_gather_pad(),
+                                                  NBR_PAD, np.int32)])
+        cstart = coffs[:-1]
+    else:
+        csrc, cstart = flat, starts[own, np.arange(B)]
+    clen = np.array([len(r) for r in src_rows], np.int32)
+    extra = rng.integers(0, vmax, size=(B, 3)).astype(np.int32)
+    extra[rng.random(B) < 0.1, 0] = vmax          # > empties the range
+    extra[rng.random(B) < 0.1, 1] = vmax          # < keeps all of it
+    extra[rng.random(B) < 0.1, 0] = -1            # > keeps all of it
+    neg = rng.integers(0, vmax, size=(B, Q)).astype(np.int32)
+    for b in range(B):
+        inter = src_rows[b]
+        for p in range(P):
+            inter = np.intersect1d(inter, rows[pick[p, b]])
+        if Q and len(inter):
+            neg[b, 0] = rng.choice(inter)
+        if Q > 1 and len(src_rows[b]):
+            neg[b, 1] = rng.choice(src_rows[b])
+        if Q > 2:
+            neg[b, 2] = neg[b, 0]                  # a duplicate
+    return dict(csrc=csrc.astype(np.int32), cstart=cstart.astype(np.int32),
+                clen=clen, flat=flat, starts=starts, lens=lens, own=own,
+                extra=extra, neg=neg, width=width, window=window)
+
+
+def _rows_on_card(case):
+    return {k: (torch.from_numpy(np.ascontiguousarray(v)).cuda()
+                if isinstance(v, np.ndarray) else v) for k, v in case.items()}
+
+
+def _rows_both(c, dirs, signed, own=True, **launch):
+    """(kernel, plain version) of the row-sourced entry on one case;
+    `launch` given = the CUDA launcher with those launch shapes, else
+    the public wrapper."""
+    from repro_torch.kernels import intersect
+    from repro_torch.kernels.ref import level_expand_rows_ref
+
+    args = (c["csrc"], c["cstart"], c["clen"], c["flat"], c["starts"],
+            c["lens"], c["own"] if own else None,
+            c["extra"][:, :len(dirs)].contiguous() if dirs else None,
+            c["neg"] if signed else None)
+    kw = dict(dirs=dirs, width=c["width"], window=c["window"])
+    got = (intersect.level_rows_cuda(*args, **kw, **launch) if launch
+           else ops.level_expand_rows(*args, **kw))
+    want = level_expand_rows_ref(*args, **kw)
+    torch.cuda.synchronize()
+    return got, want
+
+
+# (group, P, labeled, Q, width, L): every group size of the kernel, rows
+# longer than a shared tile at the smallest tiles, rows of several
+# candidate chunks (width > 16 x group), P = 1 (own row and prefix
+# columns only) to 4
+ROWS_CASES = [(8, 2, False, 0, 100, 180), (8, 1, False, 4, 128, 130),
+              (32, 3, True, 4, 300, 380), (256, 2, False, 4, 1000, 1100),
+              (256, 4, True, 0, 2100, 2200), (8, 4, False, 4, 64, 90),
+              (8, 2, True, 4, 300, 700), (32, 3, False, 4, 1200, 1300)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ROWS_CASES,
+                         ids=lambda c: f"G{c[0]}-P{c[1]}"
+                         f"{'-lab' if c[2] else ''}-Q{c[3]}")
+def test_rows_kernel_matches_plain_version(case):
+    """The row-sourced kernel is bit-equal to its plain version in count
+    and signed mode: every comparison set (ranges empty, partial, whole),
+    own given and not (-1 rows included), window below some row lengths,
+    empty candidate and predecessor rows, rows of exactly a tile and
+    longer (tile_per_lane 1..32), B not a multiple of the rows per block,
+    and a grid capped so each group walks many rows."""
+    _need_card("K1")
+    group, P, label, Q, width, L = case
+    c = _rows_on_card(rows_case(group + P, 333, P, width=width,
+                                window=width + 40, L=L, Q=Q, label=label))
+    for dirs in ((), (1,), (1, -1, 0), (0, 0)):
+        for signed in ((False, True) if Q else (False,)):
+            for own in (True, False):
+                for tpl, mb in ((32, 0), (1, 3), (2, 1)):
+                    got, want = _rows_both(c, dirs, signed, own, group=group,
+                                           tile_per_lane=tpl, max_blocks=mb)
+                    assert torch.equal(got, want), (dirs, signed, own, tpl,
+                                                    mb)
+
+
+@pytest.mark.cuda
+def test_rows_kernel_edges_relaunch_and_counters():
+    """Exactly-one-tile rows (tile_per_lane * group entries), all rows
+    empty, relaunches bit-equal, and the public wrapper counting one
+    `count` or `signed` launch per call (none for B = 0)."""
+    _need_card("K1")
+    c = _rows_on_card(rows_case(5, 200, 2, width=128, window=200, L=192,
+                                Q=3))
+    got, want = _rows_both(c, (1, -1, 0), True, group=8, tile_per_lane=24)
+    assert torch.equal(got, want)
+    again, _ = _rows_both(c, (1, -1, 0), True, group=8, tile_per_lane=24)
+    assert torch.equal(again, got)
+    empty = dict(c, lens=torch.zeros_like(c["lens"]))
+    got, want = _rows_both(empty, (), True, group=8)
+    assert torch.equal(got, want)
+    ops.reset_launches()
+    for signed in (False, True, True):
+        got, want = _rows_both(c, (0,), signed)
+        assert torch.equal(got, want)
+    zero = {k: (v[..., :0].contiguous() if k in ("starts", "lens") else
+                v[:0].contiguous() if k in ("cstart", "clen", "own", "extra",
+                                            "neg") else v)
+            for k, v in c.items()}
+    assert _rows_both(zero, (), False)[0].shape == (0,)
+    assert ops.launches == {"mask": 0, "count": 1, "signed": 2,
+                            "membership": 0, "intersect_count": 0,
+                            "flash": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["dtype", "contiguity", "device", "own"])
+def test_rows_wrapper_refuses_bad_inputs_on_card(bad):
+    _need_card("K1")
+    c = _rows_on_card(rows_case(6, 40, 2, width=32, window=40, L=40, Q=2))
+    if bad == "dtype":
+        c["clen"] = c["clen"].to(torch.int64)
+    elif bad == "contiguity":
+        c["lens"] = torch.cat([c["lens"], c["lens"]], 1)[:, ::2]
+    elif bad == "device":
+        c["cstart"] = c["cstart"].cpu()
+    else:
+        c["own"][7] = 2
+    with pytest.raises((TypeError, ValueError)):
+        _rows_both(c, (1,), True)
