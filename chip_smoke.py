@@ -13,34 +13,46 @@ run outside a checkout of this repository.  Phases, one line each:
     sources, one nvcc per source, started together; each build's
     seconds and each kernel's ptxas registers and spills (K4's wgmma
     kernel must not spill);
- 2. K1 against its plain PyTorch version on the card, bit-equal, on
-    windows of the wiki-vote-syn CSR at main-path shapes (B = 32768,
-    D ∈ {128, 1024, 1917}, P ∈ {1, 2, 3}) in mask, count and signed mode;
+ 2. K1's gathered-window entry against its plain PyTorch version on
+    the card, bit-equal, on windows of the wiki-vote-syn CSR at main-path
+    shapes (B = 32768, D ∈ {128, 1024, 1917}, P ∈ {1, 2, 3}) in mask,
+    count and signed mode;
     then K1's row-sourced entry (`ops.level_expand_rows`, count and
     signed mode, the candidates read from their CSR row in the kernel)
     against its plain version, bit-equal, on rows of the same CSR at the
-    same shapes, with and without `own` and the comparisons;
+    same shapes, with and without `own` and the comparisons; then K1's
+    mask-and-compact entry (`ops.level_expand_compact`: mask mode with
+    the level's stream compaction in the kernels) against its plain
+    version, bit-equal over parent[:C], newcol[:C] and the offset, at
+    P = 1–4, CSR and labeled, offsets near C and past 2^31 - C, every
+    group size, a relaunch (`phase2_compact`);
  3. `repro_torch.launch.mine` on tiny-er for P1–P6, enum and --use-iep
     (plus the graphzero IEP plans of P1 and P4, which fold a tail);
     counts held to the reference oracle's values;
  4. full size, wiki-vote-syn (8,192 vertices, 79,597 edges): the
     triangle count on both paths; P1 on the kernel path under the
     graphpi plan, the graphzero plan with and without its IEP tail and
-    the naive plan (÷ |Aut|); both paths on a slice of the roots, and
-    that slice on the kernel path under torch.profiler with the graphpi
-    and the graphzero IEP plans (device kernel time against unprofiled
-    wall, K1's time per kernel, top kernels).  Then small-rmat: P1 under
+    the naive plan (÷ |Aut|); both paths on the roots v0 ∈ [96, 112),
+    and that slice on the kernel path under torch.profiler with the
+    graphpi and the graphzero IEP plans (device kernel time against
+    unprofiled wall, K1's time per kernel, top kernels; the
+    gathered-window kernel must not run there), then under the graphpi
+    plan with the mask levels run by the composition the
+    mask-and-compact entry replaced and by the entry, alternated, in
+    one process (`k1_mask_walls`).  Then small-rmat: P1 under
     the graphpi, graphzero and naive plans, enum and IEP, on both paths;
  5. K1's launches in the named main-path runs: mask and count in the
     wiki-vote-syn P1 graphpi count, signed in the graphzero IEP count;
  6. K1's time per launch on the largest real main-path launch of each
-    mode, beside its plain version's and the card's bound; for count and
-    signed mode (the row-sourced kernel) also the composition it
-    replaced (the gathered window, the prefix columns concatenated, the
-    gathered-window kernel), all bit-equal on the same rows; then the
-    largest count and signed launch of each bucket width at every group
-    size of the row-sourced kernel (`group_sweep`; `k1_rows_sweep`
-    runs it on the root slice's launches alone).
+    mode (mask mode also on the largest of each bucket width), beside
+    its plain version's and the card's bound, and the composition it
+    replaced, all bit-equal on the same rows: for mask mode the window
+    gather, the gathered-window kernel and the compaction, each also
+    timed alone; for count and signed mode the gathered window, the
+    prefix columns concatenated and the gathered-window kernel.  Then
+    the largest launch of each mode and bucket width at every group
+    size (`group_sweep`, `compact_sweep`; `k1_rows_sweep` runs them on
+    the root slice's launches alone).
 
  7. K4 against its plain PyTorch version on the card: the reference
     test's shapes, causal and bidirectional, bf16 and fp32, within the
@@ -85,7 +97,9 @@ run outside a checkout of this repository.  Phases, one line each:
 
 Every count of phases 3–4 sets K1's launch counters to 0 just before it
 and reads them just after; a kernel-path count must launch exactly the
-modes its plan needs, a portable-path count none.  In phase 8 K4's
+modes its plan needs, a portable-path count none, and each mask launch
+must be one launch of each mask-and-compact kernel
+(`intersect.compact_launches`).  In phase 8 K4's
 counter is set to 0 just before each batch prefill, admission and
 decode call and read just after: n_layers (28) launches per prefill
 and per admission, all of the wgmma kernel, none in decode.
@@ -95,8 +109,8 @@ of the engine, must show exactly the plan's modes.
 
 Counts are integers and every comparison of phases 2–6 and 10–13 is
 exact (no tolerance).  The last two lines are the kernels record (K1's
-three modes, K2, K3, K4 with its kernel `variant` and `tflops`) and the
-device record (JSON).
+three modes and its gathered-window entry, K2, K3, K4 with its kernel
+`variant` and `tflops`) and the device record (JSON).
 """
 from __future__ import annotations
 
@@ -215,14 +229,16 @@ def phase2(arrays, W, errs):
     return n_cases
 
 
-def rows_cases(arrays, rng, B, D, P):
-    """Rows of a real CSR for the row-sourced entry at one main-path
+def rows_cases(arrays, rng, B, D, P, label=False):
+    """Rows of a real CSR for the row-sourced entries at one main-path
     shape: each frontier row's candidates are the CSR row of a
     degree-biased base vertex (bucket width D), its predecessors the base
     (own = 0) and random neighbours of it; 5% of the predecessor rows
     are emptied (an emptied base row empties the candidate row too),
     three prefix values for comparisons and four prefix columns (the
-    base, a neighbour, a random vertex, the neighbour again)."""
+    base, a neighbour, a random vertex, the neighbour again).  `label`:
+    the candidates are a random 60% of the base's row, in an array of
+    their own (`csrc`), as a labeled position's per-label rows are."""
     import numpy as np
     import torch
 
@@ -249,8 +265,18 @@ def rows_cases(arrays, rng, B, D, P):
         return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.int32,
                                device=dev)
 
-    return dict(cstart=t(starts[0]), clen=t(lens[0]), starts=t(starts),
-                lens=t(lens), own=t(np.zeros(B)), extra=t(extra), neg=t(neg))
+    out = dict(csrc=arrays.flat, cstart=t(starts[0]), clen=t(lens[0]),
+               starts=t(starts), lens=t(lens), own=t(np.zeros(B)),
+               extra=t(extra), neg=t(neg))
+    if label:
+        n = lens[0].astype(np.int64)
+        pos = np.repeat(starts[0].astype(np.int64) - np.cumsum(n) + n, n) \
+            + np.arange(int(n.sum()))
+        keep = rng.random(pos.shape[0]) < 0.6
+        kept = np.bincount(np.repeat(np.arange(B), n)[keep], minlength=B)
+        out.update(csrc=t(flat_h[pos[keep]]),
+                   cstart=t(np.cumsum(kept) - kept), clen=t(kept))
+    return out
 
 
 def phase2_rows(arrays, W, errs):
@@ -271,7 +297,7 @@ def phase2_rows(arrays, W, errs):
             for dirs in ((), (1, -1, 0)):
                 for signed in (False, True):
                     for own in (c["own"], None):
-                        args = (arrays.flat, c["cstart"], c["clen"],
+                        args = (c["csrc"], c["cstart"], c["clen"],
                                 arrays.flat, c["starts"], c["lens"], own,
                                 c["extra"] if dirs else None,
                                 c["neg"] if signed else None)
@@ -286,6 +312,110 @@ def phase2_rows(arrays, W, errs):
                               f"dirs={dirs} signed={signed} "
                               f"own={own is not None}")
                         n_cases += 1
+    return n_cases
+
+
+def compact_run(c, flat, own, dirs, W, width, C, offset0, **launch):
+    """One call of the mask-and-compact entry on case `c` and of its
+    plain version, each into its own `parent` / `newcol` [C + 1] (both
+    filled with -7) behind an int64 offset of `offset0`; `launch` given =
+    the CUDA launcher with those launch shapes, else the public wrapper.
+    Returns ((parent[:C], newcol[:C], offset) of the kernel, the same of
+    the plain version)."""
+    import torch
+
+    from repro_torch.kernels import intersect, ops
+    from repro_torch.kernels.ref import level_expand_compact_ref
+
+    dev = flat.device
+    B = c["cstart"].numel()
+    rows = torch.arange(B, dtype=torch.int32, device=dev) * 3 + 1
+    out = []
+    for fn in ("kernel", "plain"):
+        parent = torch.full((C + 1,), -7, dtype=torch.int32, device=dev)
+        newcol = torch.full((C + 1,), -7, dtype=torch.int32, device=dev)
+        offset = torch.tensor(offset0, dtype=torch.int64, device=dev)
+        args = (c["csrc"], c["cstart"], c["clen"], flat, c["starts"],
+                c["lens"], own, c["extra"][:, :len(dirs)].contiguous()
+                if dirs else None, rows, offset, parent, newcol)
+        kw = dict(dirs=dirs, width=width, window=W)
+        if fn == "plain":
+            level_expand_compact_ref(*args, **kw)
+        elif launch:
+            intersect.level_compact_cuda(*args, **kw, **launch)
+        else:
+            ops.level_expand_compact(*args, **kw)
+        out.append((parent[:C], newcol[:C], int(offset)))
+    torch.cuda.synchronize()
+    return out
+
+
+def phase2_compact(arrays, W, errs):
+    """K1's mask-and-compact entry against its plain version, bit-equal
+    over parent[:C], newcol[:C] and the offset, on rows of the
+    wiki-vote-syn CSR at the main-path widths: P = 1-4, CSR and labeled
+    candidate rows, own given or not, the comparisons (>, <, !=) or
+    none, empty rows (5% of the predecessor rows emptied), and four
+    (capacity, starting offset) settings from the launch's total T (all
+    kept; totals past C; an offset that starts 50 below C; an offset
+    above 2^31 - C, every pair dropped); then every group size with
+    small tiles and capped grids, and a relaunch, bit-equal."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import intersect
+
+    rng = np.random.default_rng(20262)
+    n_cases = 0
+    variants = [(True, (1, -1, 0), False), (False, (), False),
+                (True, (0,), True), (False, (1, -1, 0), True)]
+    for D in (128, 1024, 1917):
+        for P in (1, 2, 3, 4):
+            cs = {lab: rows_cases(arrays, rng, 16384, D, P, label=lab)
+                  for lab in (False, True)}
+            for i, (own, dirs, lab) in enumerate(variants):
+                c = cs[lab]
+                o = c["own"] if own else None
+                ex = c["extra"][:, :len(dirs)].contiguous() if dirs else None
+                T = int(intersect.level_rows_cuda(
+                    c["csrc"], c["cstart"], c["clen"], arrays.flat,
+                    c["starts"], c["lens"], o, ex, None, dirs=dirs,
+                    width=D, window=W).sum())
+                half = max(T // 2, 1)
+                C, off0 = [(T + 100, 0), (half, 0), (half, max(half - 50, 0)),
+                           (max(T, 1), 2**31 - max(T, 1) + 5)][(i + P) % 4]
+                got, want = compact_run(c, arrays.flat, o, dirs, W, D, C,
+                                        off0)
+                check(got[2] == want[2] == off0 + T,
+                      f"K1 compact offset {got[2]} plain {want[2]}, want "
+                      f"{off0 + T} at D={D} P={P} {(own, dirs, lab)}")
+                for g, w in zip(got[:2], want[:2]):
+                    errs.append(float((g.to(torch.int64) - w.to(
+                        torch.int64)).abs().max()))
+                    check(bool((g == w).all()),
+                          f"K1 compact != plain at B=16384 D={D} P={P} "
+                          f"own={own} dirs={dirs} label={lab} C={C} "
+                          f"offset={off0}")
+                n_cases += 1
+    # every group size, forced, with small tiles and capped grids; then a
+    # relaunch through the wrapper, bit-equal to the first launch
+    for D, P in ((128, 3), (1024, 2), (1917, 4)):
+        c = rows_cases(arrays, rng, 4096, D, P, label=D == 1024)
+        for g in (8, 32, 256):
+            for tpl, mb in ((32, 0), (1, 3), (4, 1)):
+                got, want = compact_run(c, arrays.flat, c["own"], (1, -1, 0),
+                                        W, D, 1 << 20, 11, group=g,
+                                        tile_per_lane=tpl, max_blocks=mb)
+                check(all(bool((a == b).all()) for a, b in
+                          zip(got[:2], want[:2])) and got[2] == want[2],
+                      f"K1 compact G={g} tile={tpl} blocks={mb} != plain "
+                      f"at D={D} P={P}")
+                n_cases += 1
+        first, _ = compact_run(c, arrays.flat, c["own"], (0,), W, D, 5000, 0)
+        again, _ = compact_run(c, arrays.flat, c["own"], (0,), W, D, 5000, 0)
+        check(all(bool((a == b).all()) for a, b in zip(first[:2], again[:2]))
+              and first[2] == again[2], f"K1 compact relaunch differs at "
+              f"D={D}")
     return n_cases
 
 
@@ -313,31 +443,42 @@ def check_launches(what, launches, plan, use_kernel) -> None:
 
 
 class LaunchRecorder:
-    """Wraps `ops.level_expand` (mask mode) and `ops.level_expand_rows`
-    (count and signed mode) to keep, for each mode in `modes`, the
-    arguments of the largest launch (by rows x width) of one count — the
-    inputs phase 6 times — and, for count and signed mode, of the
-    largest launch of each bucket width (keyed (mode, width))."""
+    """Wraps `ops.level_expand_compact` (mask mode) and
+    `ops.level_expand_rows` (count and signed mode) to keep, for each
+    mode in `modes`, the arguments of the largest launch (by rows x
+    width) of one count — the inputs phase 6 times — and of the largest
+    launch of each bucket width (keyed (mode, width)).  Mask mode keeps
+    every argument by name, `offset`, `parent` and `newcol` as they were
+    before the call."""
 
     def __init__(self, ops, modes):
+        import inspect
+
         self.ops = ops
-        self.real = (ops.level_expand, ops.level_expand_rows)
+        self.real = (ops.level_expand_compact, ops.level_expand_rows)
+        self.sig = inspect.signature(ops.level_expand_compact)
         self.modes = modes
         self.best = {}
 
     def keep(self, key, size, args, kw):
         mode = key[0] if isinstance(key, tuple) else key
         if mode in self.modes and size > self.best.get(key, (0,))[0]:
-            keep = [a.clone() if hasattr(a, "clone") else a for a in args]
+            if isinstance(args, dict):
+                keep = {k: a.clone() if hasattr(a, "clone") else a
+                        for k, a in args.items()}
+            else:
+                keep = [a.clone() if hasattr(a, "clone") else a
+                        for a in args]
             self.best[key] = (size, keep, dict(kw))
 
-    def window(self, cand, flat, starts, lens, extra=None, cand_valid=None,
-               **kw):
-        if not kw.get("count"):
-            self.keep("mask", cand.numel(),
-                      (cand, starts, lens, extra, cand_valid), kw)
-        return self.real[0](cand, flat, starts, lens, extra, cand_valid,
-                            **kw)
+    def compact(self, *a, **kw):
+        args = self.sig.bind(*a, **kw)
+        args.apply_defaults()
+        args = dict(args.arguments)
+        args["dirs"] = tuple(args["dirs"])
+        for key in ("mask", ("mask", args["width"])):
+            self.keep(key, args["cstart"].numel() * args["width"], args, {})
+        return self.real[0](*a, **kw)
 
     def rows(self, csrc, cstart, clen, flat, starts, lens, own=None,
              extra=None, neg=None, **kw):
@@ -352,12 +493,12 @@ class LaunchRecorder:
                             extra, neg, **kw)
 
     def __enter__(self):
-        self.ops.level_expand = self.window
+        self.ops.level_expand_compact = self.compact
         self.ops.level_expand_rows = self.rows
         return self
 
     def __exit__(self, *exc):
-        self.ops.level_expand, self.ops.level_expand_rows = self.real
+        self.ops.level_expand_compact, self.ops.level_expand_rows = self.real
         return False
 
 
@@ -388,7 +529,21 @@ def count_on(what, graph, plan, cfg, arrays, *, aut_divisor=1, roots=None,
         launches = dict(ops.launches)
     check(res is not None and not res.overflowed, f"{what} overflowed")
     check_launches(what, launches, plan, cfg.use_kernel)
+    check_compact(what, launches)
     return res.count // aut_divisor, wall, state.dispatches, res, launches
+
+
+def check_compact(what, launches) -> None:
+    """Every mask-mode launch of a count launched each of the
+    mask-and-compact entry's three kernels once, as its launcher reports
+    them launched (`intersect.compact_launches`, counted apart from the
+    wrapper's `ops.launches["mask"]`)."""
+    from repro_torch.kernels import intersect
+
+    got = dict(intersect.compact_launches)
+    check(got == dict.fromkeys(got, launches["mask"]),
+          f"{what}: mask launches {launches['mask']}, mask-and-compact "
+          f"kernels {got}")
 
 
 def stats_on(what, graph, cfg, arrays):
@@ -456,30 +611,256 @@ def bound_of(cand, starts, lens, extra, valid, count, window):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def time_mask(best, arrays) -> dict:
-    """Phase 6, mask mode: the recorded launch through the gathered-window
-    kernel, checked bit-equal to its plain version, then timed beside it."""
+ROW_ARGS = ("csrc", "cstart", "clen", "flat", "starts", "lens", "own",
+            "extra", "rows")
+
+
+def compact_composition(a, offset, parent, newcol):
+    """What K1's mask-and-compact entry replaced on the main path, on
+    its arguments `a` (by name): the window gathered at `width`
+    (`ref.gather_window`), the gathered-window kernel in mask mode
+    (`ops.level_expand`), then the executor's compaction
+    (`ref.compact_pairs`)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import compact_pairs, gather_window
+
+    cand, ok = gather_window(a["csrc"], a["cstart"], a["clen"], a["width"])
+    mask = ops.level_expand(cand, a["flat"], a["starts"], a["lens"],
+                            a["extra"], ok, dirs=a["dirs"],
+                            window=a["window"])
+    compact_pairs(mask, cand, a["rows"], offset, parent, newcol)
+
+
+def composition_parts(a) -> dict:
+    """The composition's three parts on recorded arguments `a`, each
+    timed on its own (CUDA events, 3 warm-up calls, then 20): the window
+    gather, the gathered-window kernel in mask mode, the compaction
+    (its `offset` restored before each call, as in every timed call of
+    this phase), and the three together."""
+    from repro_torch.kernels import intersect
+    from repro_torch.kernels.ref import compact_pairs, gather_window
+
+    off0 = a["offset"]
+    off, par, col = off0.clone(), a["parent"].clone(), a["newcol"].clone()
+    src = (a["csrc"], a["cstart"], a["clen"], a["width"])
+    cand, ok = gather_window(*src)
+    win = (cand, a["flat"], a["starts"], a["lens"], a["extra"], ok)
+    wkw = dict(dirs=a["dirs"], count=False, neg_from=None,
+               window=a["window"])
+    mask = intersect.level_expand_cuda(*win, **wkw)
+
+    def compact():
+        off.copy_(off0)
+        compact_pairs(mask, cand, a["rows"], off, par, col)
+
+    def whole():
+        off.copy_(off0)
+        compact_composition(a, off, par, col)
+
+    return {"gather_ms": time_ms(lambda: gather_window(*src)),
+            "window_ms": time_ms(lambda: intersect.level_expand_cuda(
+                *win, **wkw)),
+            "compact_ms": time_ms(compact),
+            "composition_ms": time_ms(whole)}
+
+
+def compact_outputs(fn, a):
+    """(parent[:C], newcol[:C], offset) after `fn(offset, parent, newcol)`
+    on fresh copies of the recorded buffers."""
+    C = a["parent"].shape[0] - 1
+    off, par, col = (a["offset"].clone(), a["parent"].clone(),
+                     a["newcol"].clone())
+    fn(off, par, col)
+    return par[:C], col[:C], off
+
+
+def all_written(a) -> dict:
+    """Recorded mask-mode arguments `a` with the capacity raised so that
+    every pair of the launch is written (fresh `parent` / `newcol` of
+    offset + total + 1 entries, filled with -7): the launch does all of
+    its work, where the recorded one may have dropped pairs past C."""
     import torch
 
     from repro_torch.kernels import intersect
-    from repro_torch.kernels.ref import level_expand_ref
 
-    _, (cand, starts, lens, extra, valid), kw = best
-    args = (cand, arrays.flat, starts, lens, extra, valid)
-    opts = dict(dirs=tuple(kw["dirs"]), count=False, neg_from=None,
-                window=kw["window"])
-    got = intersect.level_expand_cuda(*args, **opts)
-    want = level_expand_ref(*args, **kw)
+    total = int(intersect.level_rows_cuda(
+        *(a[k] for k in ROW_ARGS[:8]), None, dirs=a["dirs"],
+        width=a["width"], window=a["window"]).sum(dtype=torch.int64))
+    C = int(a["offset"]) + total
+    return dict(a, parent=torch.full((C + 1,), -7, dtype=torch.int32,
+                                     device=a["offset"].device),
+                newcol=torch.full((C + 1,), -7, dtype=torch.int32,
+                                  device=a["offset"].device))
+
+
+def time_compact(best, window_record=False, full=False,
+                 kernel_only=False) -> dict:
+    """Phase 6, mask mode, on one recorded launch: K1's mask-and-compact
+    entry, the composition it replaced and the plain version, bit-equal
+    over parent[:C], newcol[:C] and the offset; then the entry, the
+    composition (and each of its parts) and the plain version timed in
+    one process on the same inputs, each call with the offset restored
+    first.  `full`: at a capacity that holds every pair of the launch
+    (`all_written`).  `kernel_only`: the entry against the plain
+    version, and only the entry timed.  `window_record`: also the
+    gathered-window kernel's record (mask mode on the same window)
+    against its own plain version and bound."""
+    import torch
+
+    from repro_torch.kernels import intersect
+    from repro_torch.kernels.ref import (gather_window,
+                                         level_expand_compact_ref,
+                                         level_expand_ref)
+
+    _, a, _ = best
+    if full:
+        a = all_written(a)
+    args = tuple(a[k] for k in ROW_ARGS)
+    kw = dict(dirs=a["dirs"], width=a["width"], window=a["window"])
+    runs = {
+        "kernel": lambda o, p, n: intersect.level_compact_cuda(
+            *args, o, p, n, **kw),
+        "composition": lambda o, p, n: compact_composition(a, o, p, n),
+        "plain": lambda o, p, n: level_expand_compact_ref(
+            *args, o, p, n, **kw)}
+    if kernel_only:
+        del runs["composition"]
+    outs = {k: compact_outputs(fn, a) for k, fn in runs.items()}
     torch.cuda.synchronize()
-    check(torch.equal(got, want), "K1 != plain on recorded mask")
-    ms = time_ms(lambda: intersect.level_expand_cuda(*args, **opts))
-    plain_ms = time_ms(lambda: level_expand_ref(*args, **kw), iters=5)
-    bound_ms, bound_by = bound_of(cand, starts, lens, extra, valid, False,
-                                  kw["window"])
-    B, D = cand.shape
-    return {"what": f"B={B} D={D} P={starts.shape[0]} E={len(kw['dirs'])}",
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by}
+    for k in runs:
+        check(all(torch.equal(x, y) for x, y in zip(outs[k], outs["plain"])),
+              f"K1 mask: {k} != plain on the recorded launch")
+    off0 = a["offset"]
+    off, par, col = off0.clone(), a["parent"].clone(), a["newcol"].clone()
+
+    def timed(fn):
+        def call():
+            off.copy_(off0)
+            fn(off, par, col)
+        return call
+
+    ms = time_ms(timed(runs["kernel"]))
+    total = int(outs["plain"][2]) - int(off0)
+    C = a["parent"].shape[0] - 1
+    written = max(min(total, C - int(off0)), 0)
+    P, B = a["starts"].shape
+    group = intersect.load().level_compact_group(a["width"])
+    what = (f"B={B} width={a['width']} P={P} E={len(a['dirs'])} "
+            f"group={group} pairs={total} written={written}")
+    if kernel_only:
+        return {"what": what, "ms": ms}
+    parts = composition_parts(a)
+    plain_ms = time_ms(timed(runs["plain"]), iters=5)
+    bound_ms, bound_by = rows_bound_of(
+        *args[:8], None, dirs=a["dirs"], width=a["width"],
+        window=a["window"], written=written)
+    rec = {"what": what, "ms": ms, **parts, "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by}
+    if window_record:
+        cand, ok = gather_window(a["csrc"], a["cstart"], a["clen"],
+                                 a["width"])
+        win = (cand, a["flat"], a["starts"], a["lens"], a["extra"], ok)
+        wkw = dict(dirs=a["dirs"], window=a["window"])
+        want = level_expand_ref(*win, **wkw)
+        got = intersect.level_expand_cuda(*win, **wkw, count=False,
+                                          neg_from=None)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), "K1 window != plain on recorded mask")
+        w_bound, w_by = bound_of(cand, a["starts"], a["lens"], a["extra"],
+                                 ok, False, a["window"])
+        rec["window"] = {
+            "ms": parts["window_ms"],
+            "plain_ms": time_ms(lambda: level_expand_ref(*win, **wkw),
+                                iters=5),
+            "bound_ms": w_bound, "bound_by": w_by}
+    return rec
+
+
+def compact_sweep(best, card, tiles=None) -> None:
+    """The largest recorded mask launch of each bucket width, as it ran
+    (its capacity and offset: a dispatch that overflowed writes only the
+    pairs below C) and at a capacity that holds all its pairs
+    (`all_written`), through the mask-and-compact kernels at every group
+    size and each of `tiles` (int32 staged per lane and buffer; default
+    the launcher's), bit-equal to the plain version, and timed: the
+    measurement behind the rule in `level_compact_group`."""
+    import torch
+
+    from repro_torch.kernels import intersect
+    from repro_torch.kernels.ref import level_expand_compact_ref
+
+    lib = intersect.load()
+    tiles = tiles or (intersect.TILE_PER_LANE,)
+    for key in sorted(k for k in best if isinstance(k, tuple)
+                      and k[0] == "mask"):
+        for how in ("as recorded", "every pair written"):
+            a = best[key][1] if how == "as recorded" \
+                else all_written(best[key][1])
+            args = tuple(a[k] for k in ROW_ARGS)
+            kw = dict(dirs=a["dirs"], width=a["width"], window=a["window"])
+            want = compact_outputs(lambda o, p, n: level_expand_compact_ref(
+                *args, o, p, n, **kw), a)
+            off0 = a["offset"]
+            off, par, col = (off0.clone(), a["parent"].clone(),
+                             a["newcol"].clone())
+            ms = {}
+            for g in (8, 32, 256):
+                for tpl in tiles:
+                    opts = dict(kw, group=g, tile_per_lane=tpl)
+                    got = compact_outputs(
+                        lambda o, p, n: intersect.level_compact_cuda(
+                            *args, o, p, n, **opts), a)
+                    torch.cuda.synchronize()
+                    check(all(torch.equal(x, y) for x, y in zip(got, want)),
+                          f"K1 mask width={key[1]} {how}: {opts} != plain")
+
+                    def call():
+                        off.copy_(off0)
+                        intersect.level_compact_cuda(*args, off, par, col,
+                                                     **opts)
+                    ms[(g, tpl)] = time_ms(call)
+            log(f"phase 6: K1 mask width={key[1]} B={a['cstart'].numel()} "
+                f"{how}: ms by (threads per row, tile per lane) " + " ".join(
+                    f"{g}/{tpl}:{t:.4f}" for (g, tpl), t in ms.items())
+                + f" (rule: {lib.level_compact_group(key[1])}/"
+                f"{intersect.TILE_PER_LANE}) on {card}")
+
+
+def parent_composition():
+    """A context that puts, for the CUDA route of
+    `ops.level_expand_compact`, the composition it replaced in place of
+    its kernels: the executor then runs a mask level as it did before
+    the mask-and-compact entry existed (`k1_mask_walls`)."""
+    from repro_torch.kernels import ops
+
+    def stand_in(*args, dirs, width, window):
+        a = dict(zip(ROW_ARGS, args), dirs=dirs, width=width, window=window)
+        compact_composition(a, *args[len(ROW_ARGS):])
+
+    @contextlib.contextmanager
+    def ctx():
+        real = ops.level_compact_cuda
+        ops.level_compact_cuda = stand_in
+        try:
+            yield
+        finally:
+            ops.level_compact_cuda = real
+    return ctx()
+
+
+def wiki_setup():
+    """wiki-vote-syn on the card with phase 4's configuration and its
+    statistics: (graph, arrays, kernel-path config, stats)."""
+    from repro_torch.configs.graphpi import get_dataset
+    from repro_torch.core.executor import (ExecutorConfig, auto_buckets,
+                                           compute_stats, device_graph)
+
+    wiki = get_dataset("wiki-vote-syn")
+    arrays = device_graph(wiki, "cuda")
+    cfg = ExecutorConfig(capacity=WIKI_CAPACITY,
+                         degree_buckets=auto_buckets(wiki))
+    return wiki, arrays, cfg, compute_stats(wiki, cfg, device="cuda",
+                                            arrays=arrays)
 
 
 def group_sweep(best, arrays, card, tiles=None) -> None:
@@ -495,7 +876,8 @@ def group_sweep(best, arrays, card, tiles=None) -> None:
     from repro_torch.kernels.ref import level_expand_rows_ref
 
     tiles = tiles or (intersect.TILE_PER_LANE,)
-    for key in sorted(k for k in best if isinstance(k, tuple)):
+    for key in sorted(k for k in best if isinstance(k, tuple)
+                      and k[0] != "mask"):
         mode, width = key
         _, (csrc, cstart, clen, starts, lens, own, extra, neg), kw = best[key]
         args = (csrc, cstart, clen, arrays.flat, starts, lens, own, extra,
@@ -519,30 +901,70 @@ def group_sweep(best, arrays, card, tiles=None) -> None:
 
 
 def k1_rows_sweep(card, tiles=(8, 16, 24, 32)) -> None:
-    """`group_sweep` on the launches of the wiki-vote-syn P1 root slice
-    (graphpi and graphzero IEP plans, kernel path): a quick look at the
-    row-sourced kernel's launch shapes without the whole counts."""
-    from repro_torch.configs.graphpi import get_dataset, get_pattern
-    from repro_torch.core.executor import (ExecutorConfig, auto_buckets,
-                                           compute_stats, device_graph)
+    """`group_sweep` and `compact_sweep` on the launches of the
+    wiki-vote-syn P1 root slice (graphpi and graphzero IEP plans, kernel
+    path): a quick look at the row-sourced kernels' launch shapes
+    without the whole counts."""
+    from repro_torch.configs.graphpi import get_pattern
     from repro_torch.kernels import ops
     from repro_torch.query.cache import plan_for
 
-    wiki = get_dataset("wiki-vote-syn")
-    arrays = device_graph(wiki, "cuda")
-    cfg = ExecutorConfig(capacity=WIKI_CAPACITY,
-                         degree_buckets=auto_buckets(wiki))
-    stats = compute_stats(wiki, cfg, device="cuda", arrays=arrays)
+    wiki, arrays, cfg, stats = wiki_setup()
     best = {}
     for mode, iep in (("graphpi", False), ("graphzero", True)):
         _, plan = plan_for(get_pattern("P1"), stats, mode=mode, use_iep=iep)
-        rec = LaunchRecorder(ops, ("count", "signed"))
+        rec = LaunchRecorder(ops, ("mask", "count", "signed"))
         _, wall, _, _, _ = count_on(f"sweep {mode}", wiki, plan, cfg, arrays,
                                     roots=WIKI_ROOTS, during=rec)
         log(f"sweep: {mode}{' iep' if iep else ''} roots {WIKI_ROOTS}: "
             f"wall={wall:.3f}s")
         best.update(rec.best)
     group_sweep(best, arrays, card, tiles)
+    compact_sweep(best, card, tiles)
+
+
+def k1_mask_walls(card, roots=None, setup=None, want=WIKI_P1,
+                  rounds=1) -> None:
+    """The wiki-vote-syn P1 count under the graphpi plan on the kernel
+    path (`roots` = (lo, hi): the roots v0 in [lo, hi) only), in one
+    process, alternating how the mask levels run: the composition the
+    mask-and-compact entry replaced (`parent_composition`), the entry,
+    the entry, the composition, `rounds` times; each a fresh warmed
+    Matcher's count (host clock ending in a synchronize), all equal to
+    `want`.  `setup`: phase 4's (graph, arrays, kernel-path config,
+    stats), else made here (`wiki_setup`).  Phase 4 runs it on its root
+    slice; `k1_mask_walls(card)` times the whole count."""
+    import torch
+
+    from repro_torch.configs.graphpi import get_pattern
+    from repro_torch.core.executor import CountState, Matcher
+    from repro_torch.query.cache import plan_for
+
+    wiki, arrays, cfg, stats = setup or wiki_setup()
+    _, plan = plan_for(get_pattern("P1"), stats, mode="graphpi")
+    walls = {"composition": [], "entry": []}
+    for how in ("composition", "entry", "entry", "composition") * rounds:
+        m = Matcher(wiki, plan, cfg, arrays=arrays, device="cuda")
+        m.warmup()
+        state = None if roots is None else CountState(
+            spans=[(*roots, cfg.capacity)], chunk=cfg.capacity)
+        with (parent_composition() if how == "composition"
+              else contextlib.nullcontext()):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, res = m.count_partial(state)
+            torch.cuda.synchronize()
+            walls[how].append(time.perf_counter() - t0)
+        check(res is not None and not res.overflowed
+              and res.count == want, f"walls {how}: {res and res.count}, "
+              f"want {want}")
+    what = "whole count" if roots is None else f"roots {roots}"
+    log(f"walls: wiki-vote-syn P1 graphpi {what}, mask levels by the "
+        f"composition / the entry, in turn: " + " ".join(
+            f"{how}={','.join(f'{w:.3f}' for w in ws)}s"
+            for how, ws in walls.items())
+        + f"; mean {sum(walls['composition']) / len(walls['composition']):.3f}"
+        f" / {sum(walls['entry']) / len(walls['entry']):.3f} s on {card}")
 
 
 def composition(csrc, cstart, clen, flat, starts, lens, own, extra, neg,
@@ -598,12 +1020,15 @@ def time_rows(mode, best, arrays, W) -> dict:
 
 
 def rows_bound_of(csrc, cstart, clen, flat, starts, lens, own, extra, neg,
-                  *, dirs, width, window):
+                  *, dirs, width, window, written=None):
     """Least time for one launch of the row-sourced kernel.  Bytes: the
     per-row inputs (cstart, clen, starts/lens, own, extra, neg) and the
     int32 output once each, and each distinct CSR row the launch must
     read once (candidate rows; predecessor rows other than own; own rows
     too where prefix columns are searched there), over HBM bandwidth.
+    `written` given (the mask-and-compact entry): the int32 output is
+    the `rows` input instead, and each of the `written` pairs below the
+    capacity adds 8 bytes (parent and newcol).
     Operations: a full binary search of each candidate left by the > / <
     comparisons in each other row plus its != compares, a search per
     comparison to cut the range, and a search of each prefix column in
@@ -628,7 +1053,7 @@ def rows_bound_of(csrc, cstart, clen, flat, starts, lens, own, extra, neg,
     keys.append(pkeys[searched] if Q == 0 else pkeys.reshape(-1))
     rows = int((torch.unique(torch.cat(keys)) & 0xFFFFFFFF).sum())
     nbytes = (4 * B * (2 + 2 * P + n_own + E + Q + 1)
-              + 4 * rows)
+              + 4 * rows + 8 * (written or 0))
     cand, ok = gather_window(csrc, cstart, clen, width)
     for e, d in enumerate(dirs):
         if d:
@@ -653,11 +1078,12 @@ def profile_count(what, graph, plan, cfg, arrays, roots, want, card):
     unprofiled (host clock ending in a synchronize) and once under
     torch.profiler; both must equal `want` (None: each other, since a
     root slice's count depends on the plan's restrictions).  Prints the
-    device kernels'
-    summed time against the unprofiled wall (the busy share; the
+    device kernels' summed time against the unprofiled wall (the busy share; the
     profiler's own overhead inflates its window), K1's time per kernel
-    (the gathered-window kernel: mask mode; the row-sourced kernel:
-    count or signed mode) and the kernels that took the most."""
+    (the row-sourced kernel: count or signed mode, and the mask levels'
+    first pass; the scan and the emit kernel: the mask levels; the
+    gathered-window kernel must not run) and the kernels that took the
+    most."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -691,11 +1117,20 @@ def profile_count(what, graph, plan, cfg, arrays, roots, want, card):
         f"{sum(e.count for e in kern)} launches; unprofiled wall "
         f"{wall_ms:.3f} ms; busy share {100 * busy_ms / wall_ms:.1f}% "
         f"on {card}")
-    for name in ("level_expand_kernel", "level_rows_kernel"):
+    n_k1 = {}
+    for name in ("level_expand_kernel", "level_rows_kernel",
+                 "level_compact_scan_kernel", "level_compact_kernel"):
         ev = [e for e in kern if name in e.key]
+        n_k1[name] = sum(e.count for e in ev)
         log(f"profile {what}: K1 {name}: "
             f"{sum(e.self_device_time_total for e in ev) / 1e3:.3f} ms in "
-            f"{sum(e.count for e in ev)} launches")
+            f"{n_k1[name]} launches")
+    check(n_k1["level_expand_kernel"] == 0
+          and n_k1["level_compact_kernel"] > 0
+          and n_k1["level_compact_scan_kernel"]
+          == n_k1["level_compact_kernel"],
+          f"{what}: the mask levels did not all run the mask-and-compact "
+          f"kernels: {n_k1}")
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:10]:
         log(f"profile {what}:   {e.self_device_time_total / 1e3:9.3f} "
             f"ms  x{e.count:<6d} {e.key[:80]}")
@@ -806,6 +1241,13 @@ def graph_phases(card) -> list:
     log(f"phase 2: K1 rows (count/signed) == plain version on {n_cases} "
         f"cases (P=1..3, D=128/1024/1917, own or not, comparisons or not) "
         f"in {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    n_cases = phase2_compact(arrays, W, errs)
+    log(f"phase 2: K1 mask-and-compact == plain version on {n_cases} cases "
+        f"(P=1..4, D=128/1024/1917, CSR and labeled, own or not, "
+        f"comparisons or not, pairs kept, dropped past C, offsets near C "
+        f"and past 2^31 - C, every group size, a relaunch) "
+        f"in {time.perf_counter() - t0:.1f}s")
 
     # ---- 3: the mine entry point on tiny-er.  Every run of the main
     # path from here on sets K1's counters to 0 just before it and reads
@@ -831,6 +1273,7 @@ def graph_phases(card) -> list:
         check_launches(f"{what} (stats)", {
             k: run_launches[k] - res.launches[k] for k in res.launches},
             tri, True)
+        check_compact(what, run_launches)
         got = res.result.count
         if p in TINY_ER_ORACLE:
             check(got == TINY_ER_ORACLE[p],
@@ -922,6 +1365,10 @@ def graph_phases(card) -> list:
                       f"roots {WIKI_ROOTS}", wiki, plan, cfgs["kernel"],
                       arrays, WIKI_ROOTS,
                       part["kernel"] if mode == "graphpi" else None, card)
+    # The same root slice with the mask levels run by the composition the
+    # mask-and-compact entry replaced and by the entry, in turn.
+    k1_mask_walls(card, roots=WIKI_ROOTS, want=part["kernel"], rounds=2,
+                  setup=(wiki, arrays, cfgs["kernel"], stats))
     # ---- 4b: small-rmat, every P1 plan on both paths gives one count
     small = get_dataset("small-rmat")
     sarrays = device_graph(small, "cuda")
@@ -955,21 +1402,58 @@ def graph_phases(card) -> list:
     # ---- 5: launch counters of the named main-path runs
     for mode in ("mask", "count", "signed"):
         n, what = main_launches[mode]
-        log(f"phase 5: K1 {mode}: {n} launches in the {what} count")
+        log(f"phase 5: K1 {mode}: {n} launches in the {what} count"
+            + (" (each the row counts, their scan and the emit kernel; "
+               "the gathered-window kernel none)" if mode == "mask" else ""))
         check(n > 0, f"K1 {mode} mode never launched in the {what} count")
 
-    # ---- 6: per-launch time on the largest real launch of each mode
+    # ---- 6: per-launch time on the largest real launch of each mode;
+    # mask mode also at the largest launch of each bucket width
     best = {m: b for r in recorders for m, b in r.best.items()}
     kernels = []
-    for mode in ("mask", "count", "signed"):
+    check("mask" in best, "no recorded mask launch")
+    # Each at the capacity it ran with (the largest launches run in
+    # dispatches that overflow, so they drop pairs past C: the kernel
+    # alone) and at one that holds all its pairs (the kernel, the
+    # composition and its parts, the plain version); the kernels line
+    # takes the latter.
+    t0 = time.perf_counter()
+    for key in sorted(k for k in best if isinstance(k, tuple)
+                      and k[0] == "mask"):
+        largest = key[1] == best["mask"][1]["width"]
+        rec = time_compact(best[key], kernel_only=True)
+        log(f"phase 6: K1 mask, as recorded: {rec['what']} "
+            f"ms={rec['ms']:.4f} on {card}")
+        rec = time_compact(best[key], window_record=largest, full=True)
+        log(f"phase 6: K1 mask (every pair written): {rec.pop('what')} "
+            f"ms={rec['ms']:.4f} composition_ms="
+            f"{rec.pop('composition_ms'):.4f} (gather "
+            f"{rec.pop('gather_ms'):.4f} + window kernel "
+            f"{rec.pop('window_ms'):.4f} + compaction "
+            f"{rec.pop('compact_ms'):.4f}) plain_ms="
+            f"{rec['plain_ms']:.4f} bound_ms={rec['bound_ms']:.4f} "
+            f"({rec['bound_by']}) on {card}")
+        if largest:
+            mask_rec = rec
+    window = mask_rec.pop("window")
+    window_ms = window.pop("ms")
+    log(f"phase 6: K1 gathered-window kernel, mask mode, on the largest "
+        f"mask launch's window: ms={window_ms:.4f} plain_ms="
+        f"{window['plain_ms']:.4f} bound_ms={window['bound_ms']:.4f} "
+        f"({window['bound_by']}) on {card}")
+    errs.append(0.0)
+    kernels.append({
+        "name": "level_expand.mask", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/level_expand.cu",
+        "replaces": "src/repro/kernels/intersect.py:220",
+        "launches": main_launches["mask"][0], "max_abs_err": max(errs),
+        **mask_rec, "library_ms": None})
+    for mode in ("count", "signed"):
         check(mode in best, f"no recorded {mode} launch")
-        rec = time_mask(best[mode], arrays) if mode == "mask" \
-            else time_rows(mode, best[mode], arrays, W)
-        errs.append(0.0)
+        rec = time_rows(mode, best[mode], arrays, W)
         log(f"phase 6: K1 {mode}: {rec.pop('what')} ms={rec['ms']:.4f} "
-            + (f"composition_ms={rec.pop('composition_ms'):.4f} "
-               if "composition_ms" in rec else "")
-            + f"plain_ms={rec['plain_ms']:.4f} "
+            f"composition_ms={rec.pop('composition_ms'):.4f} "
+            f"plain_ms={rec['plain_ms']:.4f} "
             f"bound_ms={rec['bound_ms']:.4f} ({rec['bound_by']}) on {card}")
         kernels.append({
             "name": f"level_expand.{mode}", "route": "cuda",
@@ -978,7 +1462,17 @@ def graph_phases(card) -> list:
             "launches": main_launches[mode][0], "max_abs_err": max(errs),
             **rec, "library_ms": None,
         })
+    # the reference-shaped entry: on no main path; its launches are phase
+    # 12's (set in main)
+    kernels.append({
+        "name": "level_expand.window", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/level_expand.cu",
+        "replaces": "src/repro/kernels/intersect.py:220",
+        "launches": None, "max_abs_err": max(errs), "ms": window_ms,
+        **window, "library_ms": None})
     group_sweep(best, arrays, card)
+    compact_sweep(best, card)
+    log(f"phase 6: in {time.perf_counter() - t0:.1f}s")
     return kernels
 
 
@@ -1489,6 +1983,12 @@ def per_pred_phase(gen, card) -> dict:
                                              "intersect_count")}
     want = {"membership": sum(2 * P - 1 for _, _, P, _ in LEVEL_SHAPES),
             "intersect_count": len(LEVEL_SHAPES)}
+    # the fused K1 here is the gathered-window kernel: the launches the
+    # kernels line reports for it
+    RESULTS["K1 window launches"] = ops.launches["mask"] \
+        + ops.launches["count"]
+    check(RESULTS["K1 window launches"] == 2 * len(LEVEL_SHAPES),
+          f"K1 gathered-window launches {ops.launches}")
     log(f"phase 12: per-pred == fused K1 (mask and count) at "
         f"{len(LEVEL_SHAPES)} shapes; K2/K3 launches {launches}")
     check(launches == want, f"K2/K3 launches {launches} != {want}")
@@ -1565,6 +2065,7 @@ def engine_phase(card) -> None:
         entry = next(e for e in engine.cache.entries()
                      if e.canon_key == tickets[0].result.canon_key)
         check_launches(what, launches, entry.plan, True)
+        check_compact(what, launches)
         counts = {t.result.count for t in tickets}
         check(counts == {want}, f"{what}: counts {counts} != {want}")
         log(f"phase 13: {what}: count={want} rounds={rounds} "
@@ -1679,7 +2180,10 @@ def main() -> int:
         f"cuda {torch.version.cuda}")
     build_kernels()
     kernels = graph_phases(card) + lm_phases(card)
-    kernels[3:3] = membership_phases(card)      # K1, K2, K3, K4
+    kernels[4:4] = membership_phases(card)      # K1, K2, K3, K4
+    for k in kernels:
+        if k["name"] == "level_expand.window":
+            k["launches"] = RESULTS["K1 window launches"]
     engine_phase(card)
     log(f"done in {time.perf_counter() - t_all:.1f}s")
     print(card, flush=True)

@@ -11,12 +11,15 @@ GraphPi's nested-loop DFS as level-synchronous frontier expansion.
    path — bucketed and single-window expansion, the last-level popcount
    and the IEP-tail cardinalities.  On the kernel path the whole level
    (membership against all predecessors + restriction + injectivity
-   masks, reduced to a mask or a popcount) is one launch of the CUDA
-   kernel K1: `kernels/ops.level_expand` over the gathered window for
-   the mask, `ops.level_expand_rows` for popcounts, which reads the
-   candidates from the base's CSR row itself; the portable path is a
-   vectorized binary search over flat CSR segments plus torch masks;
- * compaction is a cumsum scatter (stream compaction);
+   masks, reduced to a popcount or to the compacted next frontier) runs
+   in the CUDA kernel K1, which reads the candidates from the base's
+   CSR row itself: `kernels/ops.level_expand_rows` for popcounts,
+   `ops.level_expand_compact` for inner levels, which also writes the
+   surviving (row, candidate) pairs behind the running offset; the
+   portable path is a vectorized binary search over flat CSR segments
+   plus torch masks;
+ * compaction is a cumsum scatter (stream compaction; inside K1 on the
+   kernel path);
  * labeled plans prune candidates at the gather (per-label CSR
    segments), identically on both paths;
  * the IEP tail is evaluated in closed form per surviving prefix.
@@ -47,6 +50,7 @@ from ..device import resolve_device
 from ..graph.csr import GraphCSR
 from ..kernels import ops
 from ..kernels.ref import bs_iters as _bs_iters
+from ..kernels.ref import compact_pairs as _compact_pairs
 from ..kernels.ref import gather_window as _gather_window
 from ..kernels.ref import segment_member as _segment_member
 from ..obs import get_tracer
@@ -221,23 +225,17 @@ def _make_count_fn(plan: MatchingPlan, W: int, iters: int,
         """THE per-level admissibility core over rows that are all live
         (the caller expands only the selected rows).  Returns
         (cand, mask), or per-row int32 counts when `want_counts`.  `own`
-        = base's index among `preds`: the kernel's count mode reads the
-        candidates from base's row and never searches that row."""
-        if use_kernel and len(preds) > 1:
-            us = emb[:, list(preds)].T.contiguous()               # [P, B]
-            ex = emb[:, [c for c, _ in extras]] if extras else None
-            dirs = tuple(d for _, d in extras)
-            if want_counts:
-                return ops.level_expand_rows(
-                    *window_source(flat, indptr, degrees, base, labs=labs,
-                                   label=label),
-                    flat, indptr[us], degrees[us], own, ex, dirs=dirs,
-                    width=width, window=W)
-            cand, mask = gather_window(flat, indptr, degrees, base, width,
-                                       labs=labs, label=label)
-            return cand, ops.level_expand(
-                cand, flat, indptr[us], degrees[us], ex, mask, dirs=dirs,
-                window=W)
+        = base's index among `preds`: the kernel reads the candidates
+        from base's row and never searches that row.  On the kernel path
+        inner levels go to `expand_compact` instead, which never forms
+        (cand, mask)."""
+        if use_kernel and len(preds) > 1 and want_counts:
+            (starts, lens), kw = kernel_args(emb, preds, extras, indptr,
+                                             degrees)
+            return ops.level_expand_rows(
+                *window_source(flat, indptr, degrees, base, labs=labs,
+                               label=label),
+                flat, starts, lens, own, width=width, window=W, **kw)
         cand, mask = gather_window(flat, indptr, degrees, base, width,
                                    labs=labs, label=label)
         if len(preds) > 1:
@@ -257,6 +255,38 @@ def _make_count_fn(plan: MatchingPlan, W: int, iters: int,
         if want_counts:
             return mask.sum(dim=1, dtype=I32)
         return cand, mask
+
+    def kernel_args(emb, preds, extras, indptr, degrees):
+        """K1's predecessor rows (starts, lens: [P, B]) and the prefix
+        values of the comparisons, as keywords `extra` and `dirs`."""
+        us = emb[:, list(preds)].T.contiguous()                   # [P, B]
+        ex = emb[:, [c for c, _ in extras]] if extras else None
+        return (indptr[us], degrees[us]), dict(
+            extra=ex, dirs=tuple(d for _, d in extras))
+
+    def expand_compact(emb, base, own, idx, preds, extras, indptr, degrees,
+                       flat, width, offset, parent, newcol, *, labs=None,
+                       label=None):
+        """An inner level's expansion and stream compaction over the
+        frontier rows `idx`: the surviving (row, candidate) pairs go to
+        `parent` / `newcol` behind `offset`, which advances by their
+        total; pairs past capacity are dropped (the sentinel slot).  On
+        the kernel path (two or more predecessors) that is one call of
+        K1's mask-and-compact entry; else `expand_core`'s mask, then
+        the reference's cumsum scatter."""
+        if use_kernel and len(preds) > 1:
+            (starts, lens), kw = kernel_args(emb, preds, extras, indptr,
+                                             degrees)
+            ops.level_expand_compact(
+                *window_source(flat, indptr, degrees, base, labs=labs,
+                               label=label),
+                flat, starts, lens, own, rows=idx, offset=offset,
+                parent=parent, newcol=newcol, width=width, window=W, **kw)
+            return
+        cand, mask = expand_core(emb, base, None, preds, extras, indptr,
+                                 degrees, flat, width, labs=labs,
+                                 label=label)
+        _compact_pairs(mask, cand, idx, offset, parent, newcol)
 
     def select_rows(rowmask, cap):
         """Compact indices of rows where rowmask → (sel_idx [cap] with C
@@ -323,18 +353,9 @@ def _make_count_fn(plan: MatchingPlan, W: int, iters: int,
                         labs=labs, label=label)
                     total_cnt += cnts.sum(dtype=I64)
                     continue
-                cand, mask = expand_core(
-                    sub_emb, sub_base, None, preds, extras, indptr, degrees,
-                    flat, width, labs=labs, label=label)
-                # stream-compact surviving (row, cand) pairs behind
-                # `offset`; pairs past capacity land in the sentinel slot
-                flat_mask = mask.reshape(-1)
-                pos = torch.cumsum(flat_mask, 0, dtype=I64) - 1
-                out_idx = torch.where(flat_mask, (offset + pos).clamp(max=C),
-                                      C)
-                parent[out_idx] = idx[:, None].expand(mask.shape).reshape(-1)
-                newcol[out_idx] = cand.reshape(-1)
-                offset = offset + (pos[-1] + 1)
+                expand_compact(sub_emb, sub_base, own_all[idx], idx, preds,
+                               extras, indptr, degrees, flat, width, offset,
+                               parent, newcol, labs=labs, label=label)
         if last_enum:
             return total_cnt, None, needed
         new_emb = torch.cat(

@@ -14,13 +14,16 @@
 // (signed mode: the IEP prefix corrections ride along as negatively
 // weighted candidates).
 //
-// This file holds two kernels.  `level_expand_kernel` takes the
-// gathered window (cand, valid) and serves every mode; the executor
-// launches it for mask mode only, whose stream compaction needs the
-// candidate values.  `level_rows_kernel` serves count and signed mode,
-// where only the row sums are needed: it reads each candidate row from
-// its CSR offset itself, so no window, validity mask or concatenated
-// prefix columns are ever written to device memory.
+// This file holds the kernels of three entries.  `level_expand_kernel`
+// takes the gathered window (cand, valid) and serves every mode: it is
+// K1's reference-shaped entry, which the executor no longer launches.
+// `level_rows_kernel` serves count and signed mode, where only the row
+// sums are needed: it reads each candidate row from its CSR offset
+// itself, so no window, validity mask or concatenated prefix columns
+// are ever written to device memory.  The executor's mask levels run
+// `level_compact_launch`: level_rows_kernel's counts, a scan of them
+// (`level_compact_scan_kernel`) and `level_compact_kernel`, which
+// searches again and writes the level's compacted frontier itself.
 //
 // level_expand_kernel.  One warp per frontier row, lanes striding over
 // d (coalesced candidate reads); each valid candidate binary-searches
@@ -29,8 +32,8 @@
 // against `extra` run first and a failed predecessor ends the search.
 // It is latency-bound: P * ceil(log2 W) dependent loads per candidate.
 //
-// level_rows_kernel (see the note above it) is the Hopper redesign of
-// count and signed mode.
+// level_rows_kernel and level_compact_kernel (see the notes above them)
+// are the Hopper redesign of count, signed and mask mode.
 //
 // Contract (checked by the Python wrapper, kernels/ops.py): all arrays
 // int32 and contiguous on one device, rows strictly increasing, the
@@ -234,6 +237,12 @@ struct RowsArgs {
     const int* extra;     // [B, E] or null
     const int* neg;       // [B, Q] or null
     int* out;             // [B]
+    // mask-and-compact only (level_compact_kernel), else null / 0:
+    const long long* base;  // [B + 1] first position of each row's pairs
+    const int* rows;      // [B] frontier row index written to `parent`
+    int* parent;          // [C + 1]
+    int* newcol;          // [C + 1]
+    long long C;          // capacity: positions >= C are dropped
     Dirs dirs;
     int n_dirs, B, P, Q, width, window, tile;
 };
@@ -400,6 +409,12 @@ struct Cursor {
         const int* csrc = a.csrc;
         int lo = a.cstart[b];
         int hi = lo + max(min(a.clen[b], a.width), 0);
+        // The emit pass skips a row with no survivor, or whose pairs all
+        // land at or past C: it has nothing to write.
+        if (a.base != nullptr && (a.base[b] >= a.C
+                                  || a.base[b + 1] == a.base[b])) {
+            hi = lo;
+        }
         for (int e = 0; e < a.n_dirs; ++e) {
             const int dir = a.dirs.d[e];
             if (dir == 0 || lo >= hi) continue;
@@ -582,11 +597,62 @@ __device__ __forceinline__ void stage(int* buf, const RowsArgs& a,
     cp_async_commit();
 }
 
+// Writes the survivors of one chunk in column order at pos, pos + 1, ...
+// (those at or past C are dropped) and advances pos past all of them.
+// Lane j holds candidates j, j + G, ... of the chunk, so column order is
+// (slot, lane): a survivor's rank is the chunk's survivors in earlier
+// slots plus, in its own slot, those of lower lanes — a ballot per slot
+// and a popcount.  A block group (G > 32) adds the counts of the warps
+// before its own, from shared memory.  Called by the whole group.
 template <int G>
-__global__ void __launch_bounds__(G > 32 ? G : LR_WARP_GROUP_THREADS)
-level_rows_kernel(const __grid_constant__ RowsArgs a) {
+__device__ __forceinline__ void emit_chunk(const RowsArgs& a,
+                                           const Group<G>& g,
+                                           const int (&cand)[LR_SLOTS],
+                                           unsigned alive, int prow,
+                                           long long& pos, int* wcnt) {
+    constexpr int kWarps = G > 32 ? G / 32 : 1;
+    const int w = G > 32 ? (int)threadIdx.x >> 5 : 0;
+    if (G > 32) {
+#pragma unroll
+        for (int s = 0; s < LR_SLOTS; ++s) {
+            const unsigned m = __ballot_sync(0xffffffffu, (alive >> s) & 1u);
+            if ((threadIdx.x & 31) == 0) wcnt[s * kWarps + w] = __popc(m);
+        }
+        __syncthreads();
+    }
+#pragma unroll
+    for (int s = 0; s < LR_SLOTS; ++s) {
+        const bool bit = (alive >> s) & 1u;
+        const unsigned m = g.ballot(bit);      // the S lanes, bit i = srank i
+        int before = 0, total = __popc(m);
+        if (G > 32) {
+            total = 0;
+            for (int v = 0; v < kWarps; ++v) {
+                const int c = wcnt[s * kWarps + v];
+                total += c;
+                before += v < w ? c : 0;
+            }
+        }
+        const long long p =
+            pos + before + __popc(m & ((1u << g.srank) - 1u));
+        if (bit && p < a.C) {
+            a.parent[p] = prow;
+            a.newcol[p] = cand[s];
+        }
+        pos += total;
+    }
+}
+
+// The body of level_rows_kernel (kEmit false: out[b] = the row's count)
+// and of level_compact_kernel (kEmit true: the row's survivors written
+// at base[b], base[b] + 1, ...).  Both passes of the mask-and-compact
+// entry run this one body on the same inputs, so they make the same
+// admissibility decision for every candidate, bit for bit.
+template <int G, bool kEmit>
+__device__ __forceinline__ void rows_body(const RowsArgs& a) {
     extern __shared__ __align__(16) int lr_smem[];
     __shared__ int warp_sums[G > 32 ? G / 32 : 1];
+    __shared__ int wcnt[kEmit && G > 32 ? LR_SLOTS * (G / 32) : 1];
     constexpr int kGroups = G > 32 ? 1 : LR_WARP_GROUP_THREADS / G;
     const int gib = G > 32 ? 0 : (int)threadIdx.x / G;   // group in block
     const int buf_ints = a.tile + 4;
@@ -599,6 +665,8 @@ level_rows_kernel(const __grid_constant__ RowsArgs a) {
     unsigned alive = 0, found = 0;
     int acc = 0;
     int prev_last = 0;     // last entry of the previous tile of a part
+    int emit_b = -1;       // emit pass: the row emit_pos belongs to
+    long long emit_pos = 0;
     Tile t, nt;
     int parity = 0;
     bool have = cur.next(t);
@@ -665,29 +733,42 @@ level_rows_kernel(const __grid_constant__ RowsArgs a) {
             }
             if (t.flags & T_PRED_LAST) alive &= found;
         }
-        if (t.flags & T_CHUNK_LAST) acc += __popc(alive);
-        if (t.flags & T_ROW_LAST) {                // reduce, write, reset
-            int sum = acc;
-            if (G > 32) {
-                for (int o = 16; o > 0; o >>= 1) {
-                    sum += __shfl_xor_sync(0xffffffffu, sum, o);
+        if constexpr (kEmit) {
+            if (t.flags & T_CHUNK_LAST) {
+                if (t.b != emit_b) {               // the row's first chunk
+                    emit_b = t.b;
+                    emit_pos = a.base[b];
                 }
-                if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = sum;
-                __syncthreads();
-                if (threadIdx.x == 0) {
-                    int total = 0;
-                    for (int w = 0; w < (G > 32 ? G / 32 : 1); ++w) {
-                        total += warp_sums[w];
-                    }
-                    a.out[b] = total - t.neg_hits;
-                }
-            } else {
-                for (int o = G / 2; o > 0; o >>= 1) {
-                    sum += __shfl_xor_sync(cur.g.smask, sum, o);
-                }
-                if (rank == 0) a.out[b] = sum - t.neg_hits;
+                emit_chunk<G>(a, cur.g, cand, alive, a.rows[b], emit_pos,
+                              wcnt);
             }
-            acc = 0;
+        } else {
+            if (t.flags & T_CHUNK_LAST) acc += __popc(alive);
+            if (t.flags & T_ROW_LAST) {            // reduce, write, reset
+                int sum = acc;
+                if (G > 32) {
+                    for (int o = 16; o > 0; o >>= 1) {
+                        sum += __shfl_xor_sync(0xffffffffu, sum, o);
+                    }
+                    if ((threadIdx.x & 31) == 0) {
+                        warp_sums[threadIdx.x >> 5] = sum;
+                    }
+                    __syncthreads();
+                    if (threadIdx.x == 0) {
+                        int total = 0;
+                        for (int w = 0; w < (G > 32 ? G / 32 : 1); ++w) {
+                            total += warp_sums[w];
+                        }
+                        a.out[b] = total - t.neg_hits;
+                    }
+                } else {
+                    for (int o = G / 2; o > 0; o >>= 1) {
+                        sum += __shfl_xor_sync(cur.g.smask, sum, o);
+                    }
+                    if (rank == 0) a.out[b] = sum - t.neg_hits;
+                }
+                acc = 0;
+            }
         }
         cur.g.sync();          // buffer `parity` is free for the next stage
         t = nt;
@@ -696,24 +777,147 @@ level_rows_kernel(const __grid_constant__ RowsArgs a) {
     }
 }
 
+template <int G>
+__global__ void __launch_bounds__(G > 32 ? G : LR_WARP_GROUP_THREADS)
+level_rows_kernel(const __grid_constant__ RowsArgs a) {
+    rows_body<G, false>(a);
+}
+
+// ---------------------------------------------------------------------
+// K1's mask mode with the level's stream compaction: level_compact_launch.
+//
+// Replaces, on the executor's mask levels, the TPU kernel
+// `level_expand_pallas` in mask mode (src/repro/kernels/intersect.py:220)
+// together with the reference's compaction after it
+// (src/repro/core/executor.py:390-398): for every frontier row b, the
+// admissible candidates of csrc[cstart[b] : + min(clen[b], width)] (as
+// level_rows_kernel decides them) are written, in column order, as the
+// pairs (rows[b], candidate) to parent / newcol at positions
+// offset + excl[b] + k, where excl is the exclusive prefix sum of the
+// rows' survivor counts; positions at or past C are dropped, and offset
+// advances by the total, dropped pairs included.  Order is (row, column)
+// and no position comes from an atomic, so the next level's frontier is
+// the reference's and a count stays deterministic.  Positions are int64:
+// offset accumulates across slices and buckets and may pass 2^31 before
+// the executor escalates the capacity.
+//
+// Three launches on one stream:
+//  1. level_rows_kernel in count mode, as it stands: the row counts.
+//  2. level_compact_scan_kernel, one block: base[b] = offset + excl[b]
+//     for b in [0, B] (base[B] = offset + total), then offset = base[B].
+//     It scans B int32, not B x width entries.
+//  3. level_compact_kernel: the same tile stream and searches as pass 1,
+//     then each chunk's survivors ranked by a ballot per slot and
+//     written (emit_chunk).  A row with no survivor, or whose base is at
+//     or past C, is skipped without a search.
+//
+// What bounds it: the per-row inputs (cstart, clen, starts/lens, own,
+// extra, rows: 4 B each), the distinct CSR rows the launch reads, and
+// 8 B per pair written; the compares are of the same order as count
+// mode's.  What it removes: the gathered [B, width] window, its validity
+// mask, the [B, width] byte mask, the int64 scan and `where` over all
+// B x width entries and two scatters of B x width pairs (every
+// non-survivor into the sentinel slot C): at 65,536 x 1,024 that is
+// ~2.3 GB of traffic against a few MB.  The price is a second search of
+// the surviving rows' candidates (pass 3 repeats pass 1's).
+// ---------------------------------------------------------------------
+template <int G>
+__global__ void __launch_bounds__(G > 32 ? G : LR_WARP_GROUP_THREADS)
+level_compact_kernel(const __grid_constant__ RowsArgs a) {
+    rows_body<G, true>(a);
+}
+
+#define CS_THREADS 1024
+#define CS_PER 16                   // counts per thread per round
+
+// base[b] = *offset + cnt[0] + ... + cnt[b-1] for b in [0, B], then
+// *offset = base[B].  One block: offset is read before and written after
+// every other access, so the running total needs no atomics.
+__global__ void __launch_bounds__(CS_THREADS)
+level_compact_scan_kernel(const int* __restrict__ cnt, int B,
+                          long long* __restrict__ offset,
+                          long long* __restrict__ base) {
+    __shared__ long long warp_tot[CS_THREADS / 32];
+    __shared__ long long run;
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    if (threadIdx.x == 0) run = *offset;
+    __syncthreads();
+    for (long long r0 = 0; r0 < B; r0 += (long long)CS_THREADS * CS_PER) {
+        const long long i0 = r0 + (long long)threadIdx.x * CS_PER;
+        int v[CS_PER];
+        if (i0 + CS_PER <= B) {                // 16-byte aligned: i0 % 16 == 0
+            const int4* src = reinterpret_cast<const int4*>(cnt + i0);
+#pragma unroll
+            for (int k = 0; k < CS_PER / 4; ++k) {
+                const int4 q = src[k];
+                v[4 * k] = q.x;
+                v[4 * k + 1] = q.y;
+                v[4 * k + 2] = q.z;
+                v[4 * k + 3] = q.w;
+            }
+        } else {
+#pragma unroll
+            for (int k = 0; k < CS_PER; ++k) {
+                v[k] = i0 + k < B ? cnt[i0 + k] : 0;
+            }
+        }
+        long long sum = 0;
+#pragma unroll
+        for (int k = 0; k < CS_PER; ++k) sum += v[k];
+        long long x = sum;                     // inclusive scan in the warp
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+            const long long y = __shfl_up_sync(0xffffffffu, x, o);
+            if (lane >= o) x += y;
+        }
+        if (lane == 31) warp_tot[warp] = x;
+        __syncthreads();
+        if (warp == 0) {                       // scan the warps' totals
+            long long t = warp_tot[lane];
+#pragma unroll
+            for (int o = 1; o < 32; o <<= 1) {
+                const long long y = __shfl_up_sync(0xffffffffu, t, o);
+                if (lane >= o) t += y;
+            }
+            warp_tot[lane] = t;
+        }
+        __syncthreads();
+        long long e = run + (warp ? warp_tot[warp - 1] : 0) + x - sum;
+#pragma unroll
+        for (int k = 0; k < CS_PER; ++k) {
+            if (i0 + k < B) base[i0 + k] = e;
+            e += v[k];
+        }
+        __syncthreads();                       // every read of run is done
+        if (threadIdx.x == 0) run += warp_tot[CS_THREADS / 32 - 1];
+        __syncthreads();
+    }
+    if (threadIdx.x == 0) {
+        base[B] = run;
+        *offset = run;
+    }
+}
+
 static int g_num_sms = 0;
 
-template <int G>
+template <int G, bool kEmit>
 static int launch_rows(const RowsArgs& a, int max_blocks,
                        cudaStream_t stream) {
     constexpr int threads = G > 32 ? G : LR_WARP_GROUP_THREADS;
     constexpr int groups = G > 32 ? 1 : LR_WARP_GROUP_THREADS / G;
+    void (*kernel)(const RowsArgs) = level_rows_kernel<G>;
+    if (kEmit) kernel = level_compact_kernel<G>;
     const size_t smem = (size_t)groups * 2 * (a.tile + 4) * sizeof(int);
     cudaError_t err = cudaSuccess;
     if (smem > 48 * 1024) {
-        err = cudaFuncSetAttribute(level_rows_kernel<G>,
+        err = cudaFuncSetAttribute(kernel,
                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
                                    (int)smem);
         if (err != cudaSuccess) return (int)err;
     }
     int per_sm = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, level_rows_kernel<G>, threads, smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        threads, smem);
     if (err != cudaSuccess) return (int)err;
     if (g_num_sms == 0) {
         int dev = 0;
@@ -727,9 +931,21 @@ static int launch_rows(const RowsArgs& a, int max_blocks,
     long long resident = (long long)max(per_sm, 1) * max(g_num_sms, 1);
     if (blocks > resident) blocks = resident;
     if (max_blocks > 0 && blocks > max_blocks) blocks = max_blocks;
-    level_rows_kernel<G><<<(unsigned)blocks, threads, smem, stream>>>(a);
+    kernel<<<(unsigned)blocks, threads, smem, stream>>>(a);
     return (int)cudaGetLastError();
 }
+
+template <bool kEmit>
+static int launch_group(const RowsArgs& a, int group, int max_blocks,
+                        cudaStream_t s) {
+    switch (group) {
+        case 8: return launch_rows<8, kEmit>(a, max_blocks, s);
+        case 32: return launch_rows<32, kEmit>(a, max_blocks, s);
+        case 256: return launch_rows<256, kEmit>(a, max_blocks, s);
+        default: return (int)cudaErrorInvalidValue;
+    }
+}
+
 
 extern "C" int level_rows_max_preds() { return LR_MAX_PREDS; }
 
@@ -749,6 +965,66 @@ extern "C" int level_rows_group(int width) {
     return 256;
 }
 
+// The group size of both passes of level_compact_launch: a warp up to
+// 4,096 candidates, a block of 256 beyond.  Measured with
+// chip_smoke.compact_sweep on the largest mask launches of the
+// wiki-vote-syn P1 graphpi count (NVIDIA H100 80GB HBM3, 700.00 W; 32
+// int32 staged per lane).  At width 1,024 (65,536 rows) a warp wins
+// outright: 0.62 ms against 1.28 (8 lanes) and 2.24 (256), every pair
+// written.  At width 128 (524,288 rows) it depends on the pairs
+// written: with all 8.8M a warp took 2.66 ms, 8 lanes 3.02; as the
+// launch ran in the count (a dispatch that overflowed, 1.0M written)
+// 2.02 against 1.91; 8 lanes for the row counts and a warp for the emit
+// pass, 2.68 and 2.04, won neither.  Over the root-slice profile
+// (phase 4: 127 mask launches of all sizes) the emit kernel took
+// 4.40-4.43 ms with a warp in three calls against 5.59 with 8 lanes in
+// one; the slice's whole device time varies more between calls than
+// that.  The warp is the rule: it wins wherever the emit pass does its
+// work, writing pairs, and loses ~5% where a launch writes few.
+extern "C" int level_compact_group(int width) {
+    return width <= 4096 ? 32 : 256;
+}
+
+static bool rows_args(RowsArgs& a, const int* csrc, const int* cstart,
+                      const int* clen, const int* flat, const int* starts,
+                      const int* lens, const int* own, const int* extra,
+                      const int* neg, const int* dirs_host, int n_dirs,
+                      int B, int P, int Q, int width, int window, int& group,
+                      int tile_per_lane) {
+    if (n_dirs < 0 || n_dirs > LE_MAX_DIRS || P < 1 || P > LR_MAX_PREDS
+        || Q < 0 || B < 1 || width < 0 || tile_per_lane < 1
+        || tile_per_lane > 64) {
+        return false;
+    }
+    a.csrc = csrc;
+    a.cstart = cstart;
+    a.clen = clen;
+    a.flat = flat;
+    a.starts = starts;
+    a.lens = lens;
+    a.own = own;
+    a.extra = n_dirs ? extra : nullptr;
+    a.neg = Q ? neg : nullptr;
+    a.out = nullptr;
+    a.base = nullptr;
+    a.rows = nullptr;
+    a.parent = nullptr;
+    a.newcol = nullptr;
+    a.C = 0;
+    for (int e = 0; e < LE_MAX_DIRS; ++e) {
+        a.dirs.d[e] = e < n_dirs ? dirs_host[e] : 0;
+    }
+    a.n_dirs = n_dirs;
+    a.B = B;
+    a.P = P;
+    a.Q = Q;
+    a.width = width;
+    a.window = window;
+    if (group == 0) group = level_rows_group(width);
+    a.tile = tile_per_lane * group;
+    return true;
+}
+
 // Launches level_rows_kernel on `stream`; `out` is int32 [B].  `own`,
 // `extra` and `neg` may be null (none / no comparisons / count mode).
 // `group` = 0 takes level_rows_group(width), else 8, 32 or 256;
@@ -763,38 +1039,61 @@ extern "C" int level_rows_launch(const int* csrc, const int* cstart,
                                  int n_dirs, int B, int P, int Q, int width,
                                  int window, int group, int tile_per_lane,
                                  int max_blocks, void* out, void* stream) {
-    if (n_dirs < 0 || n_dirs > LE_MAX_DIRS || P < 1 || P > LR_MAX_PREDS
-        || Q < 0 || B < 1 || width < 0 || tile_per_lane < 1
-        || tile_per_lane > 64) {
+    RowsArgs a;
+    if (!rows_args(a, csrc, cstart, clen, flat, starts, lens, own, extra,
+                   neg, dirs_host, n_dirs, B, P, Q, width, window, group,
+                   tile_per_lane)) {
         return (int)cudaErrorInvalidValue;
     }
-    RowsArgs a;
-    a.csrc = csrc;
-    a.cstart = cstart;
-    a.clen = clen;
-    a.flat = flat;
-    a.starts = starts;
-    a.lens = lens;
-    a.own = own;
-    a.extra = n_dirs ? extra : nullptr;
-    a.neg = Q ? neg : nullptr;
     a.out = (int*)out;
-    for (int e = 0; e < LE_MAX_DIRS; ++e) {
-        a.dirs.d[e] = e < n_dirs ? dirs_host[e] : 0;
+    return launch_group<false>(a, group, max_blocks, (cudaStream_t)stream);
+}
+
+// Launches K1's mask-and-compact passes on `stream` (see the note above
+// level_compact_kernel): the inputs of level_rows_launch without `neg`,
+// plus `rows` int32 [B], the running `offset` (an int64 on the device,
+// advanced by the total), the capacity C and the int32 [C + 1] outputs
+// `parent` and `newcol`; `cnt` int32 [B] and `base` int64 [B + 1] are
+// the caller's scratch.  `group`, `tile_per_lane` and `max_blocks` shape
+// both search passes as in level_rows_launch, except that `group` = 0
+// takes level_compact_group(width).  `launched` (host) receives the
+// number of the three kernels launched, in order.  Returns a CUDA error
+// code (0 = all three launched).
+extern "C" int level_compact_launch(const int* csrc, const int* cstart,
+                                    const int* clen, const int* flat,
+                                    const int* starts, const int* lens,
+                                    const int* own, const int* extra,
+                                    const int* dirs_host, int n_dirs, int B,
+                                    int P, int width, int window,
+                                    const int* rows, long long* offset,
+                                    long long C, int* cnt, long long* base,
+                                    int* parent, int* newcol, int group,
+                                    int tile_per_lane, int max_blocks,
+                                    void* stream, int* launched) {
+    RowsArgs a;
+    *launched = 0;
+    if (group == 0) group = level_compact_group(width);
+    if (C < 0 || !rows_args(a, csrc, cstart, clen, flat, starts, lens, own,
+                            extra, nullptr, dirs_host, n_dirs, B, P, 0,
+                            width, window, group, tile_per_lane)) {
+        return (int)cudaErrorInvalidValue;
     }
-    a.n_dirs = n_dirs;
-    a.B = B;
-    a.P = P;
-    a.Q = Q;
-    a.width = width;
-    a.window = window;
-    if (group == 0) group = level_rows_group(width);
-    a.tile = tile_per_lane * group;
     cudaStream_t s = (cudaStream_t)stream;
-    switch (group) {
-        case 8: return launch_rows<8>(a, max_blocks, s);
-        case 32: return launch_rows<32>(a, max_blocks, s);
-        case 256: return launch_rows<256>(a, max_blocks, s);
-        default: return (int)cudaErrorInvalidValue;
-    }
+    a.out = cnt;
+    int err = launch_group<false>(a, group, max_blocks, s);
+    if (err != 0) return err;
+    *launched = 1;
+    level_compact_scan_kernel<<<1, CS_THREADS, 0, s>>>(cnt, B, offset, base);
+    err = (int)cudaGetLastError();
+    if (err != 0) return err;
+    *launched = 2;
+    a.out = nullptr;
+    a.base = base;
+    a.rows = rows;
+    a.parent = parent;
+    a.newcol = newcol;
+    a.C = C;
+    err = launch_group<true>(a, group, max_blocks, s);
+    if (err == 0) *launched = 3;
+    return err;
 }

@@ -1,35 +1,41 @@
 """Public wrappers of kernels K1–K4.
 
 Counterpart of `repro/kernels/ops.py`.  `level_expand` (K1, with the
-reference's padding contract) and `level_expand_rows` (K1's count and
-signed mode, candidates read from their CSR row), `sorted_membership`
+reference's padding contract), `level_expand_rows` (K1's count and
+signed mode, candidates read from their CSR row) and
+`level_expand_compact` (K1's mask mode with the level's stream
+compaction, candidates read from their CSR row), `sorted_membership`
 (K2) and `intersect_count` (K3) over stacked sorted rows, and
 `flash_attention` (K4, in the model's [B, S, heads, hd] layout)
 dispatch on where their tensors lie: CUDA tensors go to the
 hand-written kernels (`intersect.level_expand_cuda`,
-`intersect.level_rows_cuda`, `membership.membership_cuda`,
-`flash_attention.flash_attention_cuda`), CPU tensors to the plain
-PyTorch versions (`ref.level_expand_ref`, `ref.level_expand_rows_ref`,
+`intersect.level_rows_cuda`, `intersect.level_compact_cuda`,
+`membership.membership_cuda`, `flash_attention.flash_attention_cuda`),
+CPU tensors to the plain PyTorch versions (`ref.level_expand_ref`,
+`ref.level_expand_rows_ref`, `ref.level_expand_compact_ref`,
 `ref.membership_ref_searchsorted`, `ref.intersect_count_plain`,
 `ref.flash_attention_ref`).  They never fall back from one to the
 other: a build or launch failure raises.
 
-`launches` counts kernel launches: K1 per mode (`mask`, `count`,
-`signed`, whichever entry launched it), K2 as `membership`, K3 as
-`intersect_count`, K4 as `flash` (and per K4 kernel in
-`flash_attention.variant_launches`).  A count moves only where its CUDA
-kernel is launched.
+`launches` counts entry calls that launched kernels: K1 per mode
+(`mask`, `count`, `signed`, whichever entry launched it; one per call),
+K2 as `membership`, K3 as `intersect_count`, K4 as `flash` (and per K4
+kernel in `flash_attention.variant_launches`, per kernel of the
+mask-and-compact entry in `intersect.compact_launches`).  A count moves
+only where its CUDA kernel is launched.
 """
 from __future__ import annotations
 
 import torch
 
 from . import flash_attention as _k4
+from . import intersect as _k1
 from . import membership as _k23
-from .intersect import level_expand_cuda, level_rows_cuda, load
+from .intersect import (level_compact_cuda, level_expand_cuda,
+                        level_rows_cuda, load)
 from .ref import (flash_attention_ref, intersect_count_plain,
-                  level_expand_ref, level_expand_rows_ref,
-                  membership_ref_searchsorted)
+                  level_expand_compact_ref, level_expand_ref,
+                  level_expand_rows_ref, membership_ref_searchsorted)
 
 CAND_PAD = -1
 NBR_PAD = torch.iinfo(torch.int32).max
@@ -49,6 +55,8 @@ def reset_launches() -> None:
         launches[k] = 0
     for k in _k4.variant_launches:
         _k4.variant_launches[k] = 0
+    for k in _k1.compact_launches:
+        _k1.compact_launches[k] = 0
 
 
 def prepare(device) -> None:
@@ -169,6 +177,43 @@ def level_expand(
     return out
 
 
+def _check_rows(csrc, cstart, clen, flat, starts, lens, own, extra, dirs,
+                width):
+    """The row-sourced entries' input checks; returns (P, B, device,
+    dirs, extra) with `dirs` as ints and `extra` None without them.
+    Reads own's range on the host once (a sync), where `own` is given."""
+    for name, t in (("csrc", csrc), ("flat", flat)):
+        if isinstance(t, torch.Tensor) and t.dim() != 1:
+            raise ValueError(f"{name} must be 1-D, got {tuple(t.shape)}")
+    if not isinstance(starts, torch.Tensor) or starts.dim() != 2 \
+            or starts.shape[0] < 1:
+        raise ValueError("starts must be a [P>=1, B] tensor")
+    P, B = starts.shape
+    dev = csrc.device if isinstance(csrc, torch.Tensor) else None
+    _check("csrc", csrc, torch.int32, None, dev)
+    _check("cstart", cstart, torch.int32, (B,), dev)
+    _check("clen", clen, torch.int32, (B,), dev)
+    _check("flat", flat, torch.int32, None, dev)
+    _check("starts", starts, torch.int32, (P, B), dev)
+    _check("lens", lens, torch.int32, (P, B), dev)
+    if own is not None:
+        _check("own", own, torch.int32, (B,), dev)
+    dirs = tuple(int(d) for d in dirs)
+    if dirs:
+        if extra is None:
+            raise ValueError("dirs given without extra")
+        _check("extra", extra, torch.int32, (B, len(dirs)), dev)
+    else:
+        extra = None
+    if int(width) < 0:
+        raise ValueError(f"width must be >= 0, got {width}")
+    if own is not None and B:
+        lo, hi = (int(v) for v in torch.aminmax(own))
+        if lo < -1 or hi >= P:
+            raise ValueError(f"own outside [-1, {P}): [{lo}, {hi}]")
+    return P, B, dev, dirs, extra
+
+
 def level_expand_rows(
     csrc: torch.Tensor,                      # [F'] candidate rows' array
     cstart: torch.Tensor,                    # [B] candidate row offsets
@@ -198,39 +243,12 @@ def level_expand_rows(
     it.  All integer inputs are int32, contiguous and on `csrc`'s
     device; an `own` outside [-1, P) is refused (one read of its range
     on the host)."""
-    for name, t in (("csrc", csrc), ("flat", flat)):
-        if isinstance(t, torch.Tensor) and t.dim() != 1:
-            raise ValueError(f"{name} must be 1-D, got {tuple(t.shape)}")
-    if not isinstance(starts, torch.Tensor) or starts.dim() != 2 \
-            or starts.shape[0] < 1:
-        raise ValueError("starts must be a [P>=1, B] tensor")
-    P, B = starts.shape
-    dev = csrc.device if isinstance(csrc, torch.Tensor) else None
-    _check("csrc", csrc, torch.int32, None, dev)
-    _check("cstart", cstart, torch.int32, (B,), dev)
-    _check("clen", clen, torch.int32, (B,), dev)
-    _check("flat", flat, torch.int32, None, dev)
-    _check("starts", starts, torch.int32, (P, B), dev)
-    _check("lens", lens, torch.int32, (P, B), dev)
-    if own is not None:
-        _check("own", own, torch.int32, (B,), dev)
-    dirs = tuple(int(d) for d in dirs)
-    if dirs:
-        if extra is None:
-            raise ValueError("dirs given without extra")
-        _check("extra", extra, torch.int32, (B, len(dirs)), dev)
-    else:
-        extra = None
+    P, B, dev, dirs, extra = _check_rows(csrc, cstart, clen, flat, starts,
+                                         lens, own, extra, dirs, width)
     if neg is not None:
         if neg.dim() != 2:
             raise ValueError(f"neg must be [B, Q], got {tuple(neg.shape)}")
         _check("neg", neg, torch.int32, (B, neg.shape[1]), dev)
-    if int(width) < 0:
-        raise ValueError(f"width must be >= 0, got {width}")
-    if own is not None and B:
-        lo, hi = (int(v) for v in torch.aminmax(own))
-        if lo < -1 or hi >= P:
-            raise ValueError(f"own outside [-1, {P}): [{lo}, {hi}]")
 
     if _route(dev) == "plain":
         return level_expand_rows_ref(csrc, cstart, clen, flat, starts, lens,
@@ -242,6 +260,61 @@ def level_expand_rows(
                           neg, dirs=dirs, width=width, window=window)
     launches["count" if neg is None else "signed"] += 1
     return out
+
+
+def level_expand_compact(
+    csrc: torch.Tensor,                      # [F'] candidate rows' array
+    cstart: torch.Tensor,                    # [B] candidate row offsets
+    clen: torch.Tensor,                      # [B] candidate row lengths
+    flat: torch.Tensor,                      # [F] flat CSR indices array
+    starts: torch.Tensor,                    # [P, B] CSR row offsets
+    lens: torch.Tensor,                      # [P, B] valid row lengths
+    own: torch.Tensor | None,                # [B] row holding the cands
+    extra: torch.Tensor | None,              # [B, E] prefix-vertex values
+    rows: torch.Tensor,                      # [B] frontier row of each b
+    offset: torch.Tensor,                    # 0-d int64 running position
+    parent: torch.Tensor,                    # [C + 1] int32 out
+    newcol: torch.Tensor,                    # [C + 1] int32 out
+    *,
+    dirs: tuple = (),
+    width: int,
+    window: int,
+) -> None:
+    """K1's mask mode with the level's stream compaction, in place: the
+    admissible candidates of each row (as `level_expand_rows` decides
+    them, from csrc[cstart[b] : + min(clen[b], width)]) are written, in
+    (row, column) order, as the pairs (rows[b], candidate) to `parent` /
+    `newcol` at offset, offset + 1, ...; positions at or past C =
+    len(parent) - 1 are dropped, and `offset` advances by the total,
+    dropped pairs included.  Over parent[:C], newcol[:C] and `offset`
+    this equals, bit for bit, the gathered window through
+    `level_expand` in mask mode followed by the executor's compaction
+    (`ref.compact_pairs`); slot C is scratch.
+
+    Contracts: `level_expand_rows`'s, and `rows` int32 [B], `offset` an
+    int64 0-d tensor, `parent` / `newcol` int32 [C + 1] with C >= 0, all
+    contiguous and on `csrc`'s device."""
+    P, B, dev, dirs, extra = _check_rows(csrc, cstart, clen, flat, starts,
+                                         lens, own, extra, dirs, width)
+    _check("rows", rows, torch.int32, (B,), dev)
+    _check("offset", offset, torch.int64, (), dev)
+    if not isinstance(parent, torch.Tensor) or parent.dim() != 1 \
+            or parent.shape[0] < 1:
+        raise ValueError("parent must be a [C + 1] tensor, C >= 0")
+    _check("parent", parent, torch.int32, None, dev)
+    _check("newcol", newcol, torch.int32, tuple(parent.shape), dev)
+
+    if _route(dev) == "plain":
+        level_expand_compact_ref(csrc, cstart, clen, flat, starts, lens, own,
+                                 extra, rows, offset, parent, newcol,
+                                 dirs=dirs, width=width, window=window)
+        return
+    if B == 0:
+        return
+    level_compact_cuda(csrc, cstart, clen, flat, starts, lens, own, extra,
+                       rows, offset, parent, newcol, dirs=dirs, width=width,
+                       window=window)
+    launches["mask"] += 1
 
 
 # ------------------------------------------------- stacked membership ---

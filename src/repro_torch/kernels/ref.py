@@ -165,6 +165,58 @@ def level_expand_rows_ref(
                             count=True, neg_from=neg_from, window=window)
 
 
+def compact_pairs(mask: torch.Tensor, cand: torch.Tensor,
+                  rows: torch.Tensor, offset: torch.Tensor,
+                  parent: torch.Tensor, newcol: torch.Tensor) -> None:
+    """The executor's stream compaction (the reference's
+    `repro/core/executor.py:390-398`), in place: the pairs (rows[b],
+    cand[b, d]) with mask[b, d], in (row, column) order, go to `parent` /
+    `newcol` (int32 [C + 1]) at offset, offset + 1, ...; positions at or
+    past C land in the sentinel slot C, whose content is free; `offset`
+    (an int64 0-d tensor) advances by the total, dropped pairs
+    included."""
+    C = parent.shape[0] - 1
+    flat_mask = mask.reshape(-1)
+    if flat_mask.numel() == 0:
+        return
+    pos = torch.cumsum(flat_mask, 0, dtype=torch.int64) - 1
+    out_idx = torch.where(flat_mask, (offset + pos).clamp(max=C), C)
+    parent[out_idx] = rows[:, None].expand(mask.shape).reshape(-1)
+    newcol[out_idx] = cand.reshape(-1)
+    offset += pos[-1] + 1
+
+
+def level_expand_compact_ref(
+    csrc: torch.Tensor,                      # [F'] int32 candidate rows
+    cstart: torch.Tensor,                    # [B] int32 row offsets
+    clen: torch.Tensor,                      # [B] int32 row lengths
+    flat: torch.Tensor,                      # [F] int32 flat CSR indices
+    starts: torch.Tensor,                    # [P, B] int32
+    lens: torch.Tensor,                      # [P, B] int32
+    own: torch.Tensor | None,                # [B] int32
+    extra: torch.Tensor | None,              # [B, E] int32
+    rows: torch.Tensor,                      # [B] int32 frontier rows
+    offset: torch.Tensor,                    # 0-d int64, advanced
+    parent: torch.Tensor,                    # [C + 1] int32, written
+    newcol: torch.Tensor,                    # [C + 1] int32, written
+    *,
+    dirs: tuple = (),
+    width: int,
+    window: int,
+) -> None:
+    """Plain version of K1's mask-and-compact entry
+    (`level_compact_launch`, kernels/csrc/level_expand.cu): exactly the
+    composition it replaced on the executor's mask levels — the
+    candidate window gathered at `width`, `level_expand_ref` in mask
+    mode, then `compact_pairs`.  `own` is the caller's promise that row
+    own[b] holds every candidate; this version searches that row all the
+    same."""
+    cand, ok = gather_window(csrc, cstart, clen, width)
+    mask = level_expand_ref(cand, flat, starts, lens, extra, ok, dirs=dirs,
+                            window=window)
+    compact_pairs(mask, cand, rows, offset, parent, newcol)
+
+
 # ------------------------------------------------------------ attention ---
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True,

@@ -453,3 +453,155 @@ def test_rows_wrapper_refuses_bad_inputs_on_card(bad):
         c["own"][7] = 2
     with pytest.raises((TypeError, ValueError)):
         _rows_both(c, (1,), True)
+
+
+# ------------------------------------ K1, mask mode with the compaction ---
+def compact_both(c, dirs, own=True, *, C, offset0=0, **launch):
+    """(kernel, plain version) of the mask-and-compact entry on one card
+    case `c` (a `rows_case` on the card), each as (parent[:C],
+    newcol[:C], offset) after one call into its own buffers (both
+    filled with -7) behind an int64 offset of `offset0`; `launch` given
+    = the CUDA launcher with those launch shapes, else the public
+    wrapper."""
+    from repro_torch.kernels import intersect
+    from repro_torch.kernels.ref import level_expand_compact_ref
+
+    B = c["cstart"].numel()
+    rows = (torch.arange(B, dtype=torch.int32, device="cuda") * 5 + 2)
+    out = []
+    for which in ("kernel", "plain"):
+        parent = torch.full((C + 1,), -7, dtype=torch.int32, device="cuda")
+        newcol = torch.full((C + 1,), -7, dtype=torch.int32, device="cuda")
+        offset = torch.tensor(offset0, dtype=torch.int64, device="cuda")
+        args = (c["csrc"], c["cstart"], c["clen"], c["flat"], c["starts"],
+                c["lens"], c["own"] if own else None,
+                c["extra"][:, :len(dirs)].contiguous() if dirs else None,
+                rows, offset, parent, newcol)
+        kw = dict(dirs=dirs, width=c["width"], window=c["window"])
+        if which == "plain":
+            level_expand_compact_ref(*args, **kw)
+        elif launch:
+            intersect.level_compact_cuda(*args, **kw, **launch)
+        else:
+            ops.level_expand_compact(*args, **kw)
+        out.append((parent[:C], newcol[:C], int(offset)))
+    torch.cuda.synchronize()
+    return out
+
+
+def _survivors(c, dirs, own=True):
+    from repro_torch.kernels.ref import level_expand_rows_ref
+
+    return int(level_expand_rows_ref(
+        c["csrc"], c["cstart"], c["clen"], c["flat"], c["starts"], c["lens"],
+        c["own"] if own else None,
+        c["extra"][:, :len(dirs)].contiguous() if dirs else None, None,
+        dirs=dirs, width=c["width"], window=c["window"]).sum())
+
+
+def _same(got, want):
+    return all(torch.equal(g, w) for g, w in zip(got[:2], want[:2])) \
+        and got[2] == want[2]
+
+
+# (group, P, labeled, width, L): every group size, rows longer than a
+# shared tile at the smallest tiles, rows of several candidate chunks
+# (width > 16 x group), P = 1 (own row only) to 4; group 0 takes the
+# source's mask rule (`level_compact_group`)
+COMPACT_CASES = [(8, 2, False, 100, 180), (8, 1, True, 128, 130),
+                 (32, 3, True, 300, 380), (32, 4, False, 1200, 1300),
+                 (256, 2, False, 1000, 1100), (256, 4, True, 2100, 2200),
+                 (0, 3, False, 128, 200), (0, 2, True, 1000, 1100)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", COMPACT_CASES,
+                         ids=lambda c: f"G{c[0]}-P{c[1]}"
+                         f"{'-lab' if c[2] else ''}-W{c[3]}")
+def test_compact_kernel_matches_plain_version(case):
+    """The mask-and-compact kernels are bit-equal to their plain version
+    over parent[:C], newcol[:C] and the offset: every comparison set,
+    own given and not, empty candidate and predecessor rows, pairs all
+    kept, totals past C, an offset that starts just below C, tiles of
+    1-32 int32 per lane and capped grids."""
+    _need_card("K1")
+    group, P, label, width, L = case
+    c = _rows_on_card(rows_case(40 + group + P, 333, P, width=width,
+                                window=width + 40, L=L, label=label))
+    for dirs in ((), (1,), (1, -1, 0), (0, 0)):
+        for own in (True, False):
+            T = _survivors(c, dirs, own)
+            half = max(T // 2, 1)
+            for C, off0 in ((T + 10, 0), (half, 3), (half, max(half - 4, 0))):
+                for tpl, mb in ((32, 0), (1, 3), (2, 1)):
+                    got, want = compact_both(
+                        c, dirs, own, C=C, offset0=off0, group=group,
+                        tile_per_lane=tpl, max_blocks=mb)
+                    assert want[2] == off0 + T
+                    assert _same(got, want), (dirs, own, C, off0, tpl, mb)
+
+
+@pytest.mark.cuda
+def test_compact_kernel_offsets_relaunch_and_counters():
+    """An offset above 2^31 - C (every pair dropped, the offset still
+    advanced by the total in int64), all rows empty, relaunches
+    bit-equal, and the counters: `ops.launches["mask"]` one per call and
+    each of the entry's three kernels one per call
+    (`intersect.compact_launches`), none for B = 0."""
+    from repro_torch.kernels import intersect
+
+    _need_card("K1")
+    c = _rows_on_card(rows_case(8, 200, 2, width=128, window=200, L=192))
+    T = _survivors(c, (1, -1, 0))
+    got, want = compact_both(c, (1, -1, 0), C=T, offset0=2**31 - T + 9)
+    assert _same(got, want) and got[2] == 2**31 + 9
+    first, _ = compact_both(c, (1, -1, 0), C=T // 2, offset0=1, group=8,
+                            tile_per_lane=24)
+    again, _ = compact_both(c, (1, -1, 0), C=T // 2, offset0=1, group=8,
+                            tile_per_lane=24)
+    assert _same(first, again)
+    empty = dict(c, lens=torch.zeros_like(c["lens"]))
+    got, want = compact_both(empty, (), C=50, offset0=7, group=32)
+    assert _same(got, want) and got[2] == 7
+    ops.reset_launches()
+    for _ in range(3):
+        got, want = compact_both(c, (0,), C=T + 1)
+        assert _same(got, want)
+    zero = {k: (v[..., :0].contiguous() if k in ("starts", "lens") else
+                v[:0].contiguous() if k in ("cstart", "clen", "own", "extra")
+                else v) for k, v in c.items()}
+    got, want = compact_both(zero, (), C=4, offset0=2)
+    assert got[2] == want[2] == 2
+    assert ops.launches == {"mask": 3, "count": 0, "signed": 0,
+                            "membership": 0, "intersect_count": 0,
+                            "flash": 0}
+    assert intersect.compact_launches == {"rows": 3, "scan": 3, "emit": 3}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["offset_dtype", "offset_shape",
+                                 "contiguity", "device", "own", "newcol"])
+def test_compact_wrapper_refuses_bad_inputs_on_card(bad):
+    _need_card("K1")
+    c = _rows_on_card(rows_case(9, 40, 2, width=32, window=40, L=40))
+    rows = torch.arange(40, dtype=torch.int32, device="cuda")
+    offset = torch.zeros((), dtype=torch.int64, device="cuda")
+    parent = torch.zeros(101, dtype=torch.int32, device="cuda")
+    newcol = torch.zeros(101, dtype=torch.int32, device="cuda")
+    if bad == "offset_dtype":
+        offset = offset.to(torch.int32)
+    elif bad == "offset_shape":
+        offset = offset.reshape(1)
+    elif bad == "contiguity":
+        c["lens"] = torch.cat([c["lens"], c["lens"]], 1)[:, ::2]
+    elif bad == "device":
+        rows = rows.cpu()
+    elif bad == "own":
+        c["own"][7] = 2
+    else:
+        newcol = newcol[:-1]
+    with pytest.raises((TypeError, ValueError)):
+        ops.level_expand_compact(
+            c["csrc"], c["cstart"], c["clen"], c["flat"], c["starts"],
+            c["lens"], c["own"], c["extra"][:, :1].contiguous(), rows,
+            offset, parent, newcol, dirs=(1,), width=32, window=40)

@@ -171,20 +171,24 @@ PARENT_LAUNCHES = {("graphpi", False): {"mask": 45, "count": 45},
                          ids=["graphpi", "graphzero-iep"])
 def test_counts_route_through_the_rows_entry(monkeypatch, mode, iep):
     """On the kernel path, count and signed launches go through
-    `level_expand_rows` and mask launches through `level_expand`, each
-    launch counted as on a card (the route is forced to the kernel and
-    the CUDA launchers stubbed with the plain versions), and the
-    per-mode numbers equal the executor's before this entry."""
+    `level_expand_rows` and mask launches through
+    `level_expand_compact` (none through the gathered-window
+    `level_expand`), each launch counted as on a card (the route is
+    forced to the kernel and the CUDA launchers stubbed with the plain
+    versions), and the per-mode numbers equal the executor's before
+    this entry."""
     from repro_torch.configs.graphpi import get_dataset, get_pattern
     from repro_torch.core.executor import (ExecutorConfig, Matcher,
                                            auto_buckets, compute_stats)
     from repro_torch.query.cache import plan_for
 
-    calls = {"level_expand": set(), "level_expand_rows": set()}
+    calls = {"level_expand": set(), "level_expand_rows": set(),
+             "level_expand_compact": set()}
     mode_of = {
         "level_expand": lambda a, kw: (
             "mask" if not kw.get("count") else
             "count" if kw.get("neg_from") is None else "signed"),
+        "level_expand_compact": lambda a, kw: "mask",
         "level_expand_rows": lambda a, kw: (
             "count" if (a[8] if len(a) > 8 else kw.get("neg")) is None
             else "signed"),
@@ -202,6 +206,10 @@ def test_counts_route_through_the_rows_entry(monkeypatch, mode, iep):
         ops, "level_rows_cuda",
         lambda *a, dirs, width, window: port_ref.level_expand_rows_ref(
             *a, dirs=dirs, width=width, window=window))
+    monkeypatch.setattr(
+        ops, "level_compact_cuda",
+        lambda *a, dirs, width, window: port_ref.level_expand_compact_ref(
+            *a, dirs=dirs, width=width, window=window))
     for name in calls:
         monkeypatch.setattr(ops, name, spy(name, getattr(ops, name)))
     graph = get_dataset("tiny-er")
@@ -215,5 +223,6 @@ def test_counts_route_through_the_rows_entry(monkeypatch, mode, iep):
     assert res.count == 27_358
     assert {k: v for k, v in ops.launches.items() if v} \
         == PARENT_LAUNCHES[(mode, iep)]
-    assert calls == {"level_expand": {"mask"},
+    assert calls == {"level_expand": set(),
+                     "level_expand_compact": {"mask"},
                      "level_expand_rows": {"signed" if iep else "count"}}
