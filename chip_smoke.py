@@ -12,7 +12,7 @@ run outside a checkout of this repository.  Phases, one line each:
     `csrc/hopper.cuh`) built with nvcc for sm_90a from the checkout's
     sources, one nvcc per source, started together; each build's
     seconds and each kernel's ptxas registers and spills (K4's wgmma
-    kernel must not spill);
+    kernel and the padded K2/K3 kernel must not spill);
  2. K1's gathered-window entry against its plain PyTorch version on
     the card, bit-equal, on windows of the wiki-vote-syn CSR at main-path
     shapes (B = 32768, D ∈ {128, 1024, 1917}, P ∈ {1, 2, 3}) in mask,
@@ -79,18 +79,31 @@ run outside a checkout of this repository.  Phases, one line each:
     library yardstick; the port never calls it), with TFLOP/s and the
     share of the card's bound.
 
-10. K2 and K3 (`csrc/membership.cu`) against their plain PyTorch
-    versions on the card, bit-equal: the reference test's shapes in
-    int32 and int16, rows longer than one shared tile, ragged
-    `cand_valid` / `nbr_len` (empty rows included), shared-tile widths
-    and block sizes that must not change the result, duplicate
-    candidates;
-11. K2's and K3's time per launch at the reference benchmark's shapes
-    and at B = 65,536, D = L = 1,024, beside the plain version's and the
-    card's bound;
+10. K2 and K3 (`csrc/membership.cu`: the padded kernel behind
+    `ops.sorted_membership` / `ops.intersect_count`, which reads the
+    ragged contract itself) against their plain PyTorch versions and
+    against the first version (`membership_linear_cuda`) on the card,
+    bit-equal: the reference test's shapes in int32 and int16, rows
+    longer than one shared tile, rows of 1,000 / 1,024 / 4,096 entries,
+    D and L off multiples of 4, ragged `cand_valid` / `nbr_len` (empty
+    rows; nbr_len past L, negative, int64, all zero), -1 in the rows,
+    pointers 4 bytes off a 16-byte boundary, shared-tile widths, forced
+    warp / block groups and block sizes that must not change the result,
+    duplicate candidates;
+11. K2's and K3's time per launch at the reference benchmark's shapes,
+    at B = 65,536, D = 1,024 and L = 1,000 / 1,024 / 4,000 / 4,096: the
+    padded kernel, the first version, the plain version and the card's
+    bound on the same tensors (the small shapes also by torch.profiler's
+    device time); first the first version alone at the last four shapes
+    and `cand.clone()` + `nbr.clone()` as a yardstick
+    (`membership_step0`); at 65,536 x 1,024 x 1,024 also each group size
+    forced, and ragged rows through `ops` beside the first version
+    behind the wrapper's former padded copies;
 12. the per-predecessor composition of `benchmarks/kernel_intersect.py`
     (a gathered window and one K2 launch per predecessor, K3 for the
     last one in count mode) against the fused K1, bit-equal, both timed;
+    every K2/K3 launch there is the padded kernel
+    (`membership.kernel_launches`);
 13. the query engine on small-rmat: duplicate P1 tickets coalesced into
     one execution, an isomorphic re-query served from the cache, a count
     preempted after every dispatch equal to the uninterrupted one.
@@ -109,8 +122,9 @@ of the engine, must show exactly the plan's modes.
 
 Counts are integers and every comparison of phases 2–6 and 10–13 is
 exact (no tolerance).  The last two lines are the kernels record (K1's
-three modes and its gathered-window entry, K2, K3, K4 with its kernel
-`variant` and `tflops`) and the device record (JSON).
+three modes and its gathered-window entry, K2 and K3 with the first
+version's time as `linear_ms`, K4 with its kernel `variant` and
+`tflops`) and the device record (JSON).
 """
 from __future__ import annotations
 
@@ -1757,15 +1771,24 @@ def lm_phases(card) -> list:
 
 
 # ------------------------------------------------------ phases 10-12 --
-# The reference kernel test's shapes (tests/test_kernels.py:26-34), then
-# rows longer than one shared tile (membership.TILE = 4,096 int32).
+# The reference kernel test's shapes (tests/test_kernels.py:26-34), rows
+# longer than the first version's shared tile (4,096 int32), rows of
+# 1,000 / 1,024 / 4,096 entries (power-of-two lengths are where a linear
+# shared row meets its bank conflicts), and D and L off multiples of 4
+# (the padded kernel's 4-byte path).
 MEMBERSHIP_SHAPES = [(1, 1, 1), (3, 5, 7), (8, 128, 128), (16, 256, 384),
                      (9, 130, 200), (2, 300, 64), (32, 64, 512),
-                     (4, 700, 9000), (1, 1, 5000)]
+                     (4, 700, 9000), (1, 1, 5000), (64, 1024, 1000),
+                     (64, 1024, 1024), (16, 512, 4096), (7, 333, 1001)]
 # benchmarks/kernel_intersect.py:28-29 (B, D, L), then one executor-scale
 # shape: a wiki-vote-syn level's frontier rows and window.
 MEMBERSHIP_TIMED = [(256, 128, 128), (512, 128, 256), (1024, 256, 512),
                     (4096, 128, 128), (65536, 1024, 1024)]
+# Rows of 1,000 / 4,000 entries beside 1,024 / 4,096 at B = 65,536,
+# D = 1,024: the first version's bank conflicts come with power-of-two
+# rows.
+MEMBERSHIP_BANKS = [(65536, 1024, 1000), (65536, 1024, 1024),
+                    (65536, 1024, 4000), (65536, 1024, 4096)]
 # benchmarks/kernel_intersect.py:81-82 (B, D, P, L), then 65,536 x 1,024
 # with P = 2.
 LEVEL_SHAPES = [(256, 128, 3, 128), (512, 128, 4, 256),
@@ -1804,10 +1827,23 @@ def membership_plain(cand, nbr, count):
             else membership_ref_searchsorted(cand, nbr))
 
 
+def offset_view(t, elems=1):
+    """A contiguous copy of `t` whose data_ptr lies `elems` elements past
+    an allocation's start (4 bytes off a 16-byte boundary for int32)."""
+    import torch
+
+    flat = torch.empty(t.numel() + elems, dtype=t.dtype, device=t.device)
+    view = flat[elems:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
 def check_membership(gen, errs) -> int:
     """Phase 10: K2 and K3 through `ops.sorted_membership` /
-    `ops.intersect_count` against their plain versions on the same
-    (widened, padded) inputs, bit-equal."""
+    `ops.intersect_count` (the padded kernel, the ragged contract read in
+    it) against their plain versions on the widened, padded inputs, and
+    against the first version (`membership_linear_cuda`) on those same
+    padded inputs, bit-equal."""
     import torch
 
     from repro_torch.kernels import membership, ops
@@ -1819,10 +1855,13 @@ def check_membership(gen, errs) -> int:
             fn = ops.intersect_count if count else ops.sorted_membership
             got = fn(cand, nbr, **kw)
             want = membership_plain(c32, n32, count)
+            first = membership.membership_linear_cuda(c32, n32, count=count)
             torch.cuda.synchronize()
             err = (got.to(torch.int64) - want.to(torch.int64)).abs()
             errs[k].append(float(err.max()) if err.numel() else 0.0)
             check(torch.equal(got, want), f"{k} != plain on {what}")
+            check(torch.equal(got, first),
+                  f"{k} != the first version on {what}")
         return 1
 
     n = 0
@@ -1830,7 +1869,8 @@ def check_membership(gen, errs) -> int:
         for dtype in ((torch.int32, torch.int16) if L <= 512
                       else (torch.int32,)):
             n += one(f"{(B, D, L)} {dtype}", *rows_case(gen, B, D, L, dtype))
-    for B, D, L in ((6, 100, 150), (5, 333, 9000), (8, 128, 128)):
+    for B, D, L in ((6, 100, 150), (5, 333, 9000), (8, 128, 128),
+                    (64, 1024, 1024), (9, 7, 1001)):
         cand, nbr = rows_case(gen, B, D, L)
         nbr_len = torch.randint(0, L + 1, (B,), generator=gen, device=DEVICE)
         nbr_len[0] = 0
@@ -1839,16 +1879,51 @@ def check_membership(gen, errs) -> int:
         valid = torch.rand((B, D), generator=gen, device=DEVICE) < 0.7
         n += one(f"ragged {(B, D, L)}", cand, nbr, cand_valid=valid,
                  nbr_len=nbr_len)
+    # nbr_len past L, negative, int64, all zero (int32 and int64)
+    cand, nbr = rows_case(gen, 12, 200, 300)
+    lens = torch.tensor([0, 1, 299, 300, 301, 10**6, -1, -10**6, 2**40,
+                         -2**40, 150, 7], device=DEVICE)
+    for what, nl in (("int64 past L and negative", lens),
+                     ("int32 past L and negative",
+                      lens.clamp(-2**31, 2**31 - 1).to(torch.int32)),
+                     ("int64 all zero", torch.zeros(12, dtype=torch.int64,
+                                                    device=DEVICE)),
+                     ("int32 all zero", torch.zeros(12, dtype=torch.int32,
+                                                    device=DEVICE))):
+        n += one(f"nbr_len {what}", cand, nbr, nbr_len=nl)
+    # invalid candidates are -1, not misses: rows holding -1 match them
+    cand, nbr = rows_case(gen, 10, 64, 96)
+    nbr[:, 0] = -1
+    valid = torch.rand((10, 64), generator=gen, device=DEVICE) < 0.5
+    n += one("-1 in the rows, cand_valid", cand, nbr, cand_valid=valid)
+    # pointers 4 bytes off a 16-byte boundary (the 4-byte path)
+    for B, D, L in ((16, 256, 384), (64, 1024, 1024)):
+        cand, nbr = rows_case(gen, B, D, L)
+        valid = torch.rand((B, D), generator=gen, device=DEVICE) < 0.7
+        view = offset_view(cand)
+        check(view.data_ptr() % 16 == 4, "offset view is not misaligned")
+        n += one(f"misaligned cand {(B, D, L)}", view, nbr)
+        n += one(f"misaligned cand and cand_valid {(B, D, L)}", view,
+                 offset_view(nbr), cand_valid=offset_view(valid, 1))
     cand, nbr = rows_case(gen, 12, 200, 300)
     for bb, bd, bl in ((8, 128, 128), (8, 128, 256), (16, 256, 128)):
         n += one(f"blocks {(bb, bd, bl)}", cand, nbr, block_b=bb,
                  block_d=bd, block_l=bl)
-    for tile in (1, 7, 64, 4096):                    # rows over 1..300 tiles
+    for tile in (1, 7, 64, 4096, membership.TILE):   # rows over 1..300 tiles
         for count in (False, True):
-            got = membership.membership_cuda(cand, nbr, count=count,
-                                             tile=tile)
-            check(torch.equal(got, membership_plain(cand, nbr, count)),
-                  f"K2/K3 tile {tile} count={count} != plain")
+            want = membership_plain(cand, nbr, count)
+            for group in (0, 32, 256):
+                got = membership.membership_cuda(cand, nbr, count=count,
+                                                 tile=tile, group=group)
+                check(torch.equal(got, want),
+                      f"K2/K3 tile {tile} group {group} count={count} "
+                      f"!= plain")
+            if tile <= membership.LINEAR_TILE:
+                got = membership.membership_linear_cuda(cand, nbr,
+                                                        count=count,
+                                                        tile=tile)
+                check(torch.equal(got, want),
+                      f"first version tile {tile} count={count} != plain")
         n += 1
     cand = torch.tensor([[5, 5, 5, 7]], dtype=torch.int32, device=DEVICE)
     nbr = torch.tensor([[1, 5, 9, 2**31 - 1]], dtype=torch.int32,
@@ -1859,31 +1934,109 @@ def check_membership(gen, errs) -> int:
     return n
 
 
-def membership_bound(B, D, L, count):
+def membership_bound(B, D, L, count, ragged=False):
     """Least time for one K2/K3 launch: cand and nbr read once (4 B per
-    entry) and the output written once (1 B per candidate, or 4 B per
+    entry), nbr_len (4 B a row) and cand_valid (1 B a candidate) where
+    passed, and the output written once (1 B per candidate, or 4 B per
     row), over HBM bandwidth; against a binary search of each candidate,
     ceil(log2(L + 1)) compares, over the cores' rate."""
     import math
 
     nbytes = 4 * B * D + 4 * B * L + (4 * B if count else B * D)
+    if ragged:
+        nbytes += 4 * B + B * D
     compares = B * D * math.ceil(math.log2(L + 1))
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = compares / CORE_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def device_ms(fn, names, iters=20):
+    """Device time per launch of the kernels whose names contain one of
+    `names`, from torch.profiler: `iters` calls of `fn` in a warm-up
+    cycle, then `iters` in the recorded one, averaged over the launches
+    the trace holds (returned with their count); with the events' time
+    beside it, this tells the host's cost per call from the kernel's."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    traced = []                  # the recorded cycle's events
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: traced.extend(p.key_averages())
+                 ) as prof:
+        for _ in range(2):
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    ev = [e for e in traced
+          if e.device_type == DeviceType.CUDA
+          and any(n in e.key for n in names)]
+    launches = sum(e.count for e in ev)
+    check(0 < launches <= iters, f"profiled {launches} launches of {names} "
+          f"for {iters} calls")
+    return sum(e.self_device_time_total for e in ev) / 1e3 / launches, \
+        launches
+
+
+def membership_step0(gen, card) -> None:
+    """The first version at B = 65,536, D = 1,024 and L = 1,000 / 1,024 /
+    4,000 / 4,096 (rows of a power-of-two length meet its bank
+    conflicts), and `cand.clone()` + `nbr.clone()` at L = 1,024: what the
+    card achieves on the same bytes (each read and written once; the
+    port never calls it)."""
+    import torch
+
+    from repro_torch.kernels.membership import membership_linear_cuda
+
+    for B, D, L in MEMBERSHIP_BANKS:
+        cand, nbr = rows_case(gen, B, D, L)
+        for count, k in ((False, "K2"), (True, "K3")):
+            got = membership_linear_cuda(cand, nbr, count=count)
+            torch.cuda.synchronize()
+            check(torch.equal(got, membership_plain(cand, nbr, count)),
+                  f"first version {k} != plain at {(B, D, L)}")
+            ms = time_ms(lambda: membership_linear_cuda(cand, nbr,
+                                                        count=count))
+            bound_ms, _ = membership_bound(B, D, L, count)
+            log(f"phase 11: step 0: first version {k} B={B} D={D} L={L}: "
+                f"ms={ms:.4f} bound_ms={bound_ms:.4f} "
+                f"({100 * bound_ms / ms:.1f}% of bound) on {card}")
+        if L == 1024:
+            ms = time_ms(lambda: (cand.clone(), nbr.clone()))
+            moved = 2 * 4 * (cand.numel() + nbr.numel())
+            log(f"phase 11: step 0: cand.clone() + nbr.clone() B={B} D={D} "
+                f"L={L}: ms={ms:.4f} ({moved / ms / 1e9:.3f} TB/s read + "
+                f"written; the kernels' inputs alone at that rate: "
+                f"{moved / 2 / (moved / ms):.4f} ms) on {card}")
+        del cand, nbr
+
+
 def time_membership(gen, card, errs) -> dict:
     """Phase 11: K2 and K3 per launch (CUDA events, 3 warm-up launches,
     then 20; the plain version over 5) at the reference benchmark's
-    shapes and the executor-scale shape, beside the card's bound.
-    Returns the last shape's numbers per kernel."""
+    shapes, the executor-scale shape and rows of 1,000 / 1,024 / 4,000 /
+    4,096 entries: the padded kernel, the first version and the plain
+    version on the same tensors, beside the card's bound; at the small
+    shapes also the device time per launch from torch.profiler; at
+    65,536 x 1,024 x 1,024 also a warp and a block per row forced, and
+    ragged rows (nbr_len, cand_valid) through `ops`, which passes them
+    to the kernel, beside the first version behind the padded copies
+    the wrapper used to make.  Returns the executor-scale shape's numbers
+    per kernel."""
     import torch
 
-    from repro_torch.kernels.membership import membership_cuda
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.membership import (group_of,
+                                                membership_cuda,
+                                                membership_linear_cuda)
 
+    membership_step0(gen, card)
     out = {}
-    for B, D, L in MEMBERSHIP_TIMED:
+    for B, D, L in MEMBERSHIP_TIMED + [s for s in MEMBERSHIP_BANKS
+                                      if s not in MEMBERSHIP_TIMED]:
         cand, nbr = rows_case(gen, B, D, L)
         for count, k in ((False, "K2"), (True, "K3")):
             got = membership_cuda(cand, nbr, count=count)
@@ -1892,14 +2045,59 @@ def time_membership(gen, card, errs) -> dict:
             check(torch.equal(got, want), f"{k} != plain at {(B, D, L)}")
             errs[k].append(0.0)
             ms = time_ms(lambda: membership_cuda(cand, nbr, count=count))
+            linear_ms = time_ms(lambda: membership_linear_cuda(
+                cand, nbr, count=count))
             plain_ms = time_ms(lambda: membership_plain(cand, nbr, count),
                                iters=5)
             bound_ms, bound_by = membership_bound(B, D, L, count)
-            log(f"phase 11: {k} B={B} D={D} L={L}: ms={ms:.4f} "
+            extra = ""
+            if B <= 4096:
+                dev, n_dev = device_ms(lambda: membership_cuda(
+                    cand, nbr, count=count), ("membership_padded_kernel",))
+                lin, n_lin = device_ms(lambda: membership_linear_cuda(
+                    cand, nbr, count=count), ("membership_linear_kernel",))
+                extra = (f" device_ms={dev:.4f} linear_device_ms={lin:.4f}"
+                         f" (profiler, {n_dev} / {n_lin} of 20 launches "
+                         f"traced)")
+            log(f"phase 11: {k} B={B} D={D} L={L} group={group_of(L)}: "
+                f"ms={ms:.4f} linear_ms={linear_ms:.4f} "
                 f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} "
-                f"({bound_by}) on {card}")
-            out[k] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                      "bound_by": bound_by}
+                f"({bound_by}; {100 * bound_ms / ms:.1f}% of bound, first "
+                f"version {100 * bound_ms / linear_ms:.1f}%){extra} on {card}")
+            if (B, D, L) == MEMBERSHIP_TIMED[-1]:
+                out[k] = {"ms": ms, "linear_ms": linear_ms,
+                          "plain_ms": plain_ms, "bound_ms": bound_ms,
+                          "bound_by": bound_by}
+                forced = {g: time_ms(lambda: membership_cuda(
+                    cand, nbr, count=count, group=g)) for g in (32, 256)}
+                log(f"phase 11: {k} B={B} D={D} L={L}: a warp per row "
+                    f"{forced[32]:.4f} ms, a block per row "
+                    f"{forced[256]:.4f} ms on {card}")
+        if (B, D, L) == MEMBERSHIP_TIMED[-1]:
+            nbr_len = L - torch.randint(0, L // 4 + 1, (B,), generator=gen,
+                                        device=DEVICE)
+            valid = torch.rand((B, D), generator=gen, device=DEVICE) < 0.7
+            for count, k in ((False, "K2"), (True, "K3")):
+                fn = ops.intersect_count if count else ops.sorted_membership
+
+                def padded_first():
+                    c32, n32 = ops._stacked_rows(cand, nbr, valid, nbr_len,
+                                                 (1, 1, 1))
+                    return membership_linear_cuda(c32, n32, count=count)
+
+                got = fn(cand, nbr, valid, nbr_len)
+                torch.cuda.synchronize()
+                check(torch.equal(got, padded_first()),
+                      f"ragged {k} != the first version at {(B, D, L)}")
+                ms = time_ms(lambda: fn(cand, nbr, valid, nbr_len))
+                first_ms = time_ms(padded_first)
+                bound_ms, _ = membership_bound(B, D, L, count, ragged=True)
+                log(f"phase 11: {k} ragged (nbr_len, cand_valid) B={B} "
+                    f"D={D} L={L}: ops ms={ms:.4f} (the kernel reads them); "
+                    f"padded copies + first version ms={first_ms:.4f}; "
+                    f"bound_ms={bound_ms:.4f} "
+                    f"({100 * bound_ms / ms:.1f}% of bound) on {card}")
+        del cand, nbr
     return out
 
 
@@ -1964,6 +2162,8 @@ def per_pred_phase(gen, card) -> dict:
 
     from repro_torch.kernels import ops
 
+    from repro_torch.kernels import membership
+
     cases = [(shape, level_case(gen, *shape)) for shape in LEVEL_SHAPES]
     torch.cuda.synchronize()
     ops.reset_launches()
@@ -1989,9 +2189,13 @@ def per_pred_phase(gen, card) -> dict:
         + ops.launches["count"]
     check(RESULTS["K1 window launches"] == 2 * len(LEVEL_SHAPES),
           f"K1 gathered-window launches {ops.launches}")
+    kernels = dict(membership.kernel_launches)
     log(f"phase 12: per-pred == fused K1 (mask and count) at "
-        f"{len(LEVEL_SHAPES)} shapes; K2/K3 launches {launches}")
+        f"{len(LEVEL_SHAPES)} shapes; K2/K3 launches {launches}, by kernel "
+        f"{kernels}")
     check(launches == want, f"K2/K3 launches {launches} != {want}")
+    check(kernels == {"padded": sum(want.values()), "linear": 0},
+          f"K2/K3 launches by kernel {kernels}: not all the padded kernel")
     for (B, D, P, L), (cand, flat, starts, lens, extra, dirs) in cases:
         args = (cand, flat, starts, lens, extra, dirs, L)
         t = {name: time_ms(fn, iters=10) for name, fn in (
@@ -2135,7 +2339,8 @@ def build_kernels() -> None:
     """Phase 1: build K1, K2/K3 and K4 from the checkout's sources, one
     nvcc per source, all started together; print each build's time and
     each kernel's registers and spills (ptxas), and the compiler's notes
-    on the wgmma kernel.  The wgmma kernel must not spill."""
+    on the wgmma kernel.  K4's wgmma kernel and the padded K2/K3 kernel
+    must not spill."""
     from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.kernels import flash_attention, intersect, membership
@@ -2158,7 +2363,7 @@ def build_kernels() -> None:
         for name, regs, st, ld in ptxas_summary(text):
             log(f"phase 1: ptxas {src.name} {name}: {regs} registers, "
                 f"spill stores {st} B, spill loads {ld} B")
-            if "wgmma::" in name:
+            if "wgmma::" in name or "membership_padded_kernel" in name:
                 check(st == ld == 0, f"{name} spills ({st} / {ld} bytes)")
         for line in text.splitlines():
             if ("wgmma" in line and "C75" in line) or "arning" in line:

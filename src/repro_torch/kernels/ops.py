@@ -21,7 +21,8 @@ other: a build or launch failure raises.
 (`mask`, `count`, `signed`, whichever entry launched it; one per call),
 K2 as `membership`, K3 as `intersect_count`, K4 as `flash` (and per K4
 kernel in `flash_attention.variant_launches`, per kernel of the
-mask-and-compact entry in `intersect.compact_launches`).  A count moves
+mask-and-compact entry in `intersect.compact_launches`, per K2/K3
+kernel in `membership.kernel_launches`).  A count moves
 only where its CUDA kernel is launched.
 """
 from __future__ import annotations
@@ -57,6 +58,8 @@ def reset_launches() -> None:
         _k4.variant_launches[k] = 0
     for k in _k1.compact_launches:
         _k1.compact_launches[k] = 0
+    for k in _k23.kernel_launches:
+        _k23.kernel_launches[k] = 0
 
 
 def prepare(device) -> None:
@@ -318,11 +321,8 @@ def level_expand_compact(
 
 
 # ------------------------------------------------- stacked membership ---
-def _stacked_rows(cand, nbr, cand_valid, nbr_len, blocks):
-    """The reference's input contract of K2/K3 (`repro/kernels/ops.py:
-    61-69, 94-102`), as int32 contiguous tensors: integer inputs
-    widened, invalid candidates set to CAND_PAD and row positions at or
-    past `nbr_len[b]` to NBR_PAD, so every row stays non-decreasing."""
+def _membership_inputs(cand, nbr, cand_valid, nbr_len, blocks):
+    """K2/K3's input checks; returns (cand, nbr) widened to int32."""
     for name, t in (("cand", cand), ("nbr", nbr)):
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{name} must be a torch.Tensor, got {type(t)}")
@@ -341,35 +341,52 @@ def _stacked_rows(cand, nbr, cand_valid, nbr_len, blocks):
     if nbr.device != dev:
         raise ValueError(f"nbr on {nbr.device}, cand on {dev}")
     B = cand.shape[0]
-    cand = cand.to(torch.int32)
-    nbr = nbr.to(torch.int32)
     if cand_valid is not None:
         _check("cand_valid", cand_valid, torch.bool, tuple(cand.shape), dev)
-        cand = torch.where(cand_valid, cand, CAND_PAD)
     if nbr_len is not None:
         if (not isinstance(nbr_len, torch.Tensor)
                 or tuple(nbr_len.shape) != (B,) or nbr_len.device != dev
                 or nbr_len.dtype.is_floating_point):
             raise ValueError(f"nbr_len must be an integer [{B}] tensor on "
                              f"{dev}")
-        pos = torch.arange(nbr.shape[1], dtype=torch.int32, device=dev)
+    return cand.to(torch.int32), nbr.to(torch.int32)
+
+
+def _stacked_rows(cand, nbr, cand_valid, nbr_len, blocks):
+    """The reference's input contract of K2/K3 (`repro/kernels/ops.py:
+    61-69, 94-102`), as int32 contiguous tensors: integer inputs
+    widened, invalid candidates set to CAND_PAD and row positions at or
+    past `nbr_len[b]` to NBR_PAD, so every row stays non-decreasing.
+    The plain route's inputs; the kernel reads the same contract from
+    the raw rows."""
+    cand, nbr = _membership_inputs(cand, nbr, cand_valid, nbr_len, blocks)
+    if cand_valid is not None:
+        cand = torch.where(cand_valid, cand, CAND_PAD)
+    if nbr_len is not None:
+        pos = torch.arange(nbr.shape[1], dtype=torch.int32,
+                           device=nbr.device)
         nbr = torch.where(pos[None, :] < nbr_len[:, None], nbr, NBR_PAD)
     return cand.contiguous(), nbr.contiguous()
 
 
 def _membership(cand, nbr, cand_valid, nbr_len, blocks, *, count: bool):
-    cand, nbr = _stacked_rows(cand, nbr, cand_valid, nbr_len, blocks)
-    dev = cand.device
-    B, D = cand.shape
-    if _route(dev) == "plain":
+    dev = cand.device if isinstance(cand, torch.Tensor) else None
+    if dev is not None and _route(dev) == "plain":
+        cand, nbr = _stacked_rows(cand, nbr, cand_valid, nbr_len, blocks)
         return (intersect_count_plain(cand, nbr) if count
                 else membership_ref_searchsorted(cand, nbr))
-    if B == 0 or D == 0 or nbr.shape[1] == 0:
+    cand, nbr = _membership_inputs(cand, nbr, cand_valid, nbr_len, blocks)
+    B, D = cand.shape
+    L = nbr.shape[1]
+    if B == 0 or D == 0 or L == 0:
         # nothing to launch: no candidate, or every row empty
         if count:
             return torch.zeros((B,), dtype=torch.int32, device=dev)
         return torch.zeros((B, D), dtype=torch.bool, device=dev)
-    out = _k23.membership_cuda(cand, nbr, count=count)
+    if nbr_len is not None:      # [B] only: the [B, L] rows go as they are
+        nbr_len = nbr_len.to(torch.int64).clamp(0, L).to(torch.int32)
+    out = _k23.membership_cuda(cand.contiguous(), nbr.contiguous(), nbr_len,
+                               cand_valid, count=count)
     launches["intersect_count" if count else "membership"] += 1
     return out
 

@@ -52,6 +52,85 @@ def intersect_count_plain(cand: torch.Tensor,
                                                       dtype=torch.int32)
 
 
+def shared_slot(i):
+    """K2/K3's shared-memory slot of tile entry i (int or int tensor):
+    one pad word per 32 entries and one more per 1,024
+    (`csrc/membership.cu`, `mb_slot`)."""
+    return i + (i >> 5) + (i >> 10)
+
+
+def pow2ceil(n: int) -> int:
+    return 1 << max(int(n) - 1, 0).bit_length()
+
+
+def membership_padded_ref(cand: torch.Tensor, nbr: torch.Tensor,
+                          nbr_len: torch.Tensor | None = None,
+                          cand_valid: torch.Tensor | None = None, *,
+                          tile: int, count: bool) -> torch.Tensor:
+    """The padded K2/K3 kernel's algorithm walked in torch, for the CPU
+    tests (no path calls it).  Per row b: n_b = clamp(nbr_len[b], 0, L)
+    valid entries, cut into tiles of `tile` (an empty row is one empty
+    tile); invalid candidates become -1.  Tile t of n entries lands at
+    `shared_slot(i)` of a buffer whose slots of [n, top) hold INT32_MAX,
+    top = pow2ceil(n); the search runs log2(top) steps of 2^k < top,
+    probing the running slot plus shared_slot(2^k - 1) and advancing it
+    by shared_slot(2^k) when the probe is below c, then reads the slot
+    it reached.  Tile t decides the candidates it owns: c > the previous
+    tile's last entry (unless t = 0) and c <= its own last entry (unless
+    t is the row's last tile); every candidate is owned exactly once.
+    Returns bool [B, D], or int32 [B] row counts with `count`."""
+    cand = cand.to(torch.int32)
+    nbr = nbr.to(torch.int32)
+    B, D = cand.shape
+    L = nbr.shape[1]
+    if cand_valid is not None:
+        cand = torch.where(cand_valid, cand, -1)
+    if nbr_len is None:
+        n_b = torch.full((B,), L, dtype=torch.int64)
+    else:
+        n_b = nbr_len.to(torch.int64).clamp(0, L)
+    n_tiles = torch.where(n_b == 0, 1, (n_b + tile - 1) // tile)
+    found = torch.zeros((B, D), dtype=torch.bool)
+    owners = torch.zeros((B, D), dtype=torch.int64)
+    prev_last = torch.zeros((B,), dtype=torch.int32)
+    int_max = torch.iinfo(torch.int32).max
+    for t in range(int(n_tiles.max()) if B else 0):
+        live = t < n_tiles
+        n = (n_b - t * tile).clamp(0, tile)
+        top = torch.tensor([pow2ceil(max(int(v), 1)) for v in n])
+        # slots past a row's top hold what an earlier item left there:
+        # INT32_MIN, which would derail any search that read it
+        buf = torch.full((B, shared_slot(int(top.max()))),
+                         torch.iinfo(torch.int32).min, dtype=torch.int32)
+        rows = torch.arange(B)[:, None]
+        i = torch.arange(int(top.max()))[None, :]
+        put = i < top[:, None]
+        buf[rows.expand_as(put)[put], shared_slot(i).expand_as(put)[put]] = \
+            int_max
+        src = (t * tile + i).clamp(max=max(L - 1, 0))
+        put = i < n[:, None]
+        buf[rows.expand_as(put)[put], shared_slot(i).expand_as(put)[put]] = \
+            nbr[rows.expand_as(put), src.expand_as(put)][put]
+        p = torch.zeros((B, D), dtype=torch.int64)
+        for k in reversed(range(int(top.max()).bit_length())):
+            step = 1 << k
+            active = (2 * step <= top)[:, None]
+            v = torch.gather(buf, 1, p + shared_slot(step - 1))
+            p = p + torch.where(active & (v < cand), shared_slot(step), 0)
+        hit = torch.gather(buf, 1, p) == cand
+        last = torch.where(n > 0, torch.gather(
+            buf, 1, shared_slot((n - 1).clamp(min=0))[:, None])[:, 0], 0)
+        own = live[:, None] \
+            & ((t == 0) | (cand > prev_last[:, None])) \
+            & ((t == n_tiles - 1)[:, None] | (cand <= last[:, None]))
+        found |= own & hit
+        owners += own
+        prev_last = torch.where(live, last, prev_last)
+    if not bool((owners == 1).all()):
+        raise AssertionError("a candidate owned by no tile or by several")
+    return found.sum(dim=1, dtype=torch.int32) if count else found
+
+
 def bs_iters(window: int) -> int:
     """Binary-search steps that settle any segment of length ≤ window."""
     return max(1, math.ceil(math.log2(max(window, 2))) + 1)

@@ -279,6 +279,162 @@ def test_membership_kernel_tile_invariance(tile):
             c_d, n_d, block_b=bb, block_d=bd, block_l=bl), want_m)
 
 
+# The padded kernel (`membership_cuda`, behind the wrappers) on phase
+# 10's cases: rows of 1,000 / 1,024 / 4,096 entries, D and L off
+# multiples of 4 (the 4-byte path), ragged rows with nbr_len past L,
+# negative, int64 and all zero, -1 in the rows.
+PADDED_CASES = [(64, 1024, 1000), (64, 1024, 1024), (16, 512, 4096),
+                (7, 333, 1001), (9, 130, 200), (3, 5, 7), (4, 700, 9000)]
+
+
+def _ragged(rng, B, D, L, dtype=np.int32):
+    lens = rng.integers(-3, L + 4, size=B).astype(dtype)
+    lens[0], lens[-1] = 0, L + 10**3
+    return [torch.from_numpy(a).cuda()
+            for a in (lens, rng.random((B, D)) < 0.7)]
+
+
+def _first_version(cand, nbr, **kw):
+    """The first version (a block per row, linear tile) on the wrapper's
+    former padded copies."""
+    c32, n32 = ops._stacked_rows(cand, nbr, kw.get("cand_valid"),
+                                 kw.get("nbr_len"), (1, 1, 1))
+    return (membership.membership_linear_cuda(c32, n32, count=False),
+            membership.membership_linear_cuda(c32, n32, count=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", PADDED_CASES, ids=str)
+@pytest.mark.parametrize("ragged", [False, True], ids=["full", "ragged"])
+def test_padded_kernel_matches_plain_and_first_version(case, ragged):
+    """The padded kernel is bit-equal to the plain version and to the
+    first version on the same tensors, full or ragged (the wrapper hands
+    nbr_len and cand_valid to the kernel, no padded copy), and every
+    launch is counted per kernel."""
+    _need_card("K2/K3")
+    B, D, L = case
+    rng, cand, nbr = _rows(sum(case), B, D, L)
+    cand[:, ::5] = -1                            # -1 is a candidate too
+    nbr[:, 0] = -1
+    c_d, n_d = torch.from_numpy(cand).cuda(), torch.from_numpy(nbr).cuda()
+    kw = {}
+    if ragged:
+        nbr_len, valid = _ragged(rng, B, D, L, np.int64)
+        kw = dict(cand_valid=valid, nbr_len=nbr_len)
+    ops.reset_launches()
+    (m, c), (wm, wc) = _both(c_d, n_d, **kw)
+    assert torch.equal(m, wm) and torch.equal(c, wc), case
+    assert membership.kernel_launches == {"padded": 2, "linear": 0}
+    fm, fc = _first_version(c_d, n_d, **kw)
+    assert torch.equal(m, fm) and torch.equal(c, fc), case
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nbr_len", ["int64", "int32", "zero"])
+def test_padded_kernel_row_lengths(nbr_len):
+    """nbr_len is clamped to [0, L] as `pos < nbr_len` implies, whatever
+    its integer type; all-zero lengths leave every candidate a miss."""
+    _need_card("K2/K3")
+    rng, cand, nbr = _rows(31, 12, 200, 300)
+    lens = np.array([0, 1, 299, 300, 301, 10**6, -1, -10**6, 2**40,
+                     -2**40, 150, 7], dtype=np.int64)
+    if nbr_len == "int32":
+        lens = lens.clip(-2**31, 2**31 - 1).astype(np.int32)
+    elif nbr_len == "zero":
+        lens[:] = 0
+    c_d, n_d = torch.from_numpy(cand).cuda(), torch.from_numpy(nbr).cuda()
+    (m, c), (wm, wc) = _both(c_d, n_d, nbr_len=torch.from_numpy(lens).cuda())
+    assert torch.equal(m, wm) and torch.equal(c, wc)
+    if nbr_len == "zero":
+        assert not m.any() and not c.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(16, 256, 384), (64, 1024, 1024)],
+                         ids=str)
+def test_padded_kernel_misaligned_views(shape):
+    """cand (and cand_valid) views whose data_ptr lies 4 bytes (1 byte)
+    off a 16-byte boundary take the kernel's 4-byte path and give the
+    same result as aligned copies."""
+    _need_card("K2/K3")
+    B, D, L = shape
+    rng, cand, nbr = _rows(41, B, D, L)
+    valid = rng.random((B, D)) < 0.7
+
+    def off(a, k):
+        t = torch.from_numpy(np.ascontiguousarray(a)).cuda()
+        buf = torch.empty(t.numel() + k, dtype=t.dtype, device="cuda")
+        v = buf[k:].view(t.shape)
+        v.copy_(t)
+        return v
+
+    c_off, v_off = off(cand, 1), off(valid, 1)
+    assert c_off.data_ptr() % 16 == 4 and v_off.data_ptr() % 4 == 1
+    n_d = torch.from_numpy(nbr).cuda()
+    want = _both(torch.from_numpy(cand).cuda(), n_d,
+                 cand_valid=torch.from_numpy(valid).cuda())[1]
+    got = _both(c_off, n_d, cand_valid=v_off)[0]
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    got = (ops.sorted_membership(c_off, off(nbr, 1)),
+           ops.intersect_count(c_off, off(nbr, 1)))
+    torch.cuda.synchronize()
+    want = _both(torch.from_numpy(cand).cuda(), n_d)[1]
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [1, 7, 64, 4096, membership.TILE])
+def test_padded_kernel_tile_and_group_invariance(tile):
+    """Neither the tile width nor the group size (a warp or a block per
+    row, forced) changes the padded kernel's result: rows of 300 entries
+    in 1-300 tiles, runs of equal entries across tile boundaries, ragged
+    rows whose valid prefix ends inside a tile."""
+    _need_card("K2/K3")
+    rng, cand, nbr = _rows(21, 12, 200, 300)
+    nbr[:, 100:140] = nbr[:, 100:101]
+    nbr = np.sort(nbr, axis=1)
+    cand[:, :20] = nbr[:, 100:101]
+    nbr_len, valid = _ragged(rng, 12, 200, 300)
+    c_d, n_d = torch.from_numpy(cand).cuda(), torch.from_numpy(nbr).cuda()
+    for lens, ok in ((None, None), (nbr_len, valid)):
+        c32, n32 = ops._stacked_rows(c_d, n_d, ok, lens, (1, 1, 1))
+        want_m = membership_ref_searchsorted(c32, n32)
+        if lens is not None:
+            lens = lens.clamp(0, 300)            # as the wrapper passes it
+        for count in (False, True):
+            want = want_m.sum(dim=1, dtype=torch.int32) if count else want_m
+            for group in (0, 32, 256):
+                got = membership.membership_cuda(c_d, n_d, lens, ok,
+                                                 count=count, tile=tile,
+                                                 group=group)
+                torch.cuda.synchronize()
+                assert torch.equal(got, want), (tile, group, count)
+
+
+@pytest.mark.cuda
+def test_padded_kernel_launch_failures_raise(monkeypatch, tmp_path):
+    """No fallback: a tile out of range is refused, a launch the source
+    refuses (a group size it has no kernel for) raises, and a source
+    that does not build raises."""
+    _need_card("K2/K3")
+    _, cand, nbr = _rows(51, 4, 64, 128)
+    c_d, n_d = torch.from_numpy(cand).cuda(), torch.from_numpy(nbr).cuda()
+    with pytest.raises(ValueError):
+        membership.membership_cuda(c_d, n_d, count=False,
+                                   tile=membership.TILE + 1)
+    with pytest.raises(ValueError):
+        membership.membership_linear_cuda(c_d, n_d, count=False,
+                                          tile=membership.LINEAR_TILE + 1)
+    with pytest.raises(RuntimeError):
+        membership.membership_cuda(c_d, n_d, count=True, group=64)
+    broken = tmp_path / "membership_broken.cu"
+    broken.write_text("extern \"C\" int membership_launch( {\n")
+    monkeypatch.setattr(membership, "SOURCE", broken)
+    monkeypatch.setattr(membership, "_lib", None)
+    with pytest.raises(RuntimeError):
+        membership.membership_cuda(c_d, n_d, count=False)
+
+
 # ------------------------------------------- K1, row-sourced count mode ---
 def rows_case(seed, B, P, *, width, window, L, Q=0, label=False,
               vmax=None, own_frac=0.75):
