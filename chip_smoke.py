@@ -107,6 +107,28 @@ run outside a checkout of this repository.  Phases, one line each:
 13. the query engine on small-rmat: duplicate P1 tickets coalesced into
     one execution, an isomorphic re-query served from the cache, a count
     preempted after every dispatch equal to the uninterrupted one.
+14. the graph serving front door, through the launchers a user runs:
+    `repro_torch.launch.gateway` (graph tenant only) on wiki-vote-syn
+    with a plan store in a temporary directory — P1, an isomorphic P1
+    (coalesced with it, `--graph-quantum 2`) and the triangle, counts
+    held to WIKI_P1 and WIKI_TRIANGLES — cold, then restarted on the
+    same store by load-through (no search, persist hits) and with
+    `--warm-from-disk` (no search, preloads, no miss), each query's
+    latency and each count's dispatches printed; `launch.plan_warmup`
+    for P1-P6 on tiny-er, run twice (the rerun searches nothing); a live
+    engine on wiki-vote-syn: two epochs of 256 seeded inserts and 256
+    deletes, then a compaction, the triangles counted after each and P1
+    after the last, each count equal to a from-scratch count of the
+    rebuilt CSR, every epoch swap a `Matcher.rebind`, no re-search; an
+    RPC server process (`--live --listen 0 --port-file`) on small-rmat
+    and two client processes, one after the other (two tenants), whose
+    trace holds one mutate line, the counts equal to a direct engine's
+    over the same epochs, the round trip timed, the server ending on
+    `shutdown` with exit code 0; and graph + LM through
+    `launch.gateway --full-lm` (qwen3-1.7b, batch 2, a 512-token
+    prompt, 8 steps beside small-rmat P1/P2), its greedy tokens equal to
+    `launch.serve`'s with the same seed, 28 wgmma launches of K4 in the
+    prefill, the solo and contended turn times printed.
 
 Every count of phases 3–4 sets K1's launch counters to 0 just before it
 and reads them just after; a kernel-path count must launch exactly the
@@ -118,13 +140,18 @@ decode call and read just after: n_layers (28) launches per prefill
 and per admission, all of the wgmma kernel, none in decode.
 In phase 12 K2's and K3's counters are set to 0 just before the
 composed runs and read just after; in phase 13 K1's, around each round
-of the engine, must show exactly the plan's modes.
+of the engine, must show exactly the plan's modes; in phase 14 K1's,
+around each gateway run and each live count, must show exactly the
+modes of the plans run (none for a memoized count), and K4's, around
+each prefill and decode call, 28 per prefill and none in decode.
 
-Counts are integers and every comparison of phases 2–6 and 10–13 is
+Counts are integers and every comparison of phases 2–6 and 10–14 is
 exact (no tolerance).  The last two lines are the kernels record (K1's
 three modes and its gathered-window entry, K2 and K3 with the first
 version's time as `linear_ms`, K4 with its kernel `variant` and
-`tflops`) and the device record (JSON).
+`tflops`; `front_door_launches`: K1's launches per mode in phase 14's
+cold serve and K4's per prefill of its graph + LM run) and the device
+record (JSON).
 """
 from __future__ import annotations
 
@@ -1951,32 +1978,43 @@ def membership_bound(B, D, L, count, ragged=False):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+PROFILE_TRIES = 4
+
+
 def device_ms(fn, names, iters=20):
     """Device time per launch of the kernels whose names contain one of
     `names`, from torch.profiler: `iters` calls of `fn` in a warm-up
     cycle, then `iters` in the recorded one, averaged over the launches
     the trace holds (returned with their count); with the events' time
-    beside it, this tells the host's cost per call from the kernel's."""
+    beside it, this tells the host's cost per call from the kernel's.
+    The profiler has delivered a recorded cycle without a single device
+    event (1 of ~30 profiles on the card): such a cycle is profiled
+    again, up to PROFILE_TRIES times in all."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
-    traced = []                  # the recorded cycle's events
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1),
-                 on_trace_ready=lambda p: traced.extend(p.key_averages())
-                 ) as prof:
-        for _ in range(2):
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-            prof.step()
-    ev = [e for e in traced
-          if e.device_type == DeviceType.CUDA
-          and any(n in e.key for n in names)]
-    launches = sum(e.count for e in ev)
+    for tries in range(1, PROFILE_TRIES + 1):
+        traced = []              # the recorded cycle's events
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=lambda p: traced.extend(
+                         p.key_averages())) as prof:
+            for _ in range(2):
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        ev = [e for e in traced
+              if e.device_type == DeviceType.CUDA
+              and any(n in e.key for n in names)]
+        launches = sum(e.count for e in ev)
+        if launches:
+            break
+        log(f"phase 11: profile {tries} of {names} traced no launch")
     check(0 < launches <= iters, f"profiled {launches} launches of {names} "
-          f"for {iters} calls")
+          f"for {iters} calls in {tries} profiles")
     return sum(e.self_device_time_total for e in ev) / 1e3 / launches, \
         launches
 
@@ -2306,6 +2344,400 @@ def engine_phase(card) -> None:
     log(f"phase 13: engine checks in {time.perf_counter() - t0:.1f}s")
 
 
+# ------------------------------------------------------------ phase 14 --
+FRONT_SEED = 14
+FRONT_WIKI = "wiki-vote-syn"    # the cold serve, restarts and live graph
+FRONT_SMALL = "small-rmat"      # the RPC server and the graph + LM run
+FRONT_LIVE_BATCH = 256          # inserts and deletes per live epoch
+FRONT_LIVE_CHUNK = 1024         # the live engine's root grid: 8 spans
+FRONT_LM_ARGV = ["--arch", ARCH, "--batch", "2", "--prompt-len", "512",
+                 "--gen", "8", "--seed", "0", "--device", DEVICE]
+
+
+def front_serve(what, argv, want, prefix="phase 14"):
+    """One `repro_torch.launch.gateway` run (graph tenant only) with
+    K1's counters set to 0 just before it and read just after, under an
+    enabled tracer whose `executor.count` spans give each count's
+    dispatches.  The results must be `want`, and the counters exactly
+    the modes of the plans run (the cached plans and the triangle count
+    that bootstraps the perf model), every mask launch through the
+    mask-and-compact kernels."""
+    import torch
+
+    from repro_torch.core.executor import triangle_plan
+    from repro_torch.kernels import ops
+    from repro_torch.launch import gateway
+    from repro_torch.obs.trace import Tracer, get_tracer, set_tracer
+
+    prev = get_tracer()
+    tracer = set_tracer(Tracer(enabled=True))
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        out = gateway.run(gateway.parse_args(argv),
+                          log=lambda line: log(f"{prefix}: {what}: {line}"))
+        torch.cuda.synchronize()
+    finally:
+        set_tracer(prev)
+    wall = time.perf_counter() - t0
+    launches = dict(ops.launches)
+    check(out.rc == 0, f"{what}: gateway exited {out.rc}")
+    counts = [r.count for r in out.results]
+    check(counts == want, f"{what}: counts {counts} != {want}")
+    plans = [e.plan for e in out.engine.cache.entries()]
+    modes = set().union(kernel_modes(triangle_plan()),
+                        *(kernel_modes(p) for p in plans))
+    got = {k for k in ("mask", "count", "signed") if launches[k]}
+    check(got == modes, f"{what}: K1 launches {launches}, but the plans "
+          f"need modes {sorted(modes)}")
+    check_compact(what, launches)
+    dispatches = [sp["attrs"].get("dispatches") for sp in tracer.spans()
+                  if sp["name"] == "executor.count"]
+    return out, launches, wall, dispatches
+
+
+def front_door_phase(card) -> dict:
+    """Phase 14: the graph serving front door on the card — the plan
+    store, the live graph, the RPC server and the graph + LM gateway,
+    each through the launchers a user runs.  Returns the K1 launches of
+    the cold serve per mode and K4's per prefill of the graph + LM run,
+    keyed by kernel record name."""
+    import io
+    import subprocess
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.graphpi import get_dataset, get_pattern
+    from repro_torch.core.executor import (ExecutorConfig, auto_buckets,
+                                           device_graph)
+    from repro_torch.graph.csr import GraphCSR
+    from repro_torch.kernels import ops
+    from repro_torch.launch import gateway, plan_warmup, serve
+    from repro_torch.query import QueryEngine, QueryRequest, relabeled_variant
+    from repro_torch.serve.rpc import RPCClient
+
+    t_phase = time.perf_counter()
+    out_launches = {}
+    rng = np.random.default_rng(FRONT_SEED)
+    with tempfile.TemporaryDirectory(prefix="front-door-") as tmp:
+        # ---- 1: cold serve, wiki-vote-syn, through launch.gateway
+        iso = relabeled_variant(get_pattern("P1"), seed=FRONT_SEED)
+        reqs = os.path.join(tmp, "wiki.jsonl")
+        with open(reqs, "w") as f:
+            for spec in ({"pattern": "P1"},
+                         {"pattern": {"n": iso.n, "name": "house-iso",
+                                      "edges": [list(e) for e in iso.edges]}},
+                         {"pattern": "triangle"}):
+                f.write(json.dumps(spec) + "\n")
+        store = os.path.join(tmp, "plans")
+        argv = ["--no-lm", "--dataset", FRONT_WIKI, "--requests", reqs,
+                "--cache-dir", store, "--graph-quantum", "2",
+                "--capacity", str(WIKI_CAPACITY), "--model-buckets",
+                "--device", DEVICE]
+        want = [WIKI_P1, WIKI_P1, WIKI_TRIANGLES]
+        runs = {}
+        for what, extra in (("cold serve", []),
+                            ("restart, load-through", []),
+                            ("restart, --warm-from-disk",
+                             ["--warm-from-disk"])):
+            out, launches, wall, disp = front_serve(what, argv + extra, want)
+            cs = out.engine.cache.stats
+            res = out.results
+            log(f"phase 14: {what}: wall {wall:.3f}s; counts "
+                f"{[r.count for r in res]}; latency per query "
+                f"{[round(r.latency_s, 4) for r in res]} s (search "
+                f"{[round(r.search_seconds, 4) for r in res]}, warmup "
+                f"{[round(r.compile_seconds, 4) for r in res]}); "
+                f"dispatches per count {disp}; executions "
+                f"{out.engine.executions}, coalesced {out.engine.coalesced}"
+                f"; cache searches={cs.n_searches} hits={cs.hits} "
+                f"misses={cs.misses} persist_hits={cs.persist_hits} "
+                f"preloads={cs.preloads} warmups={cs.n_compiles}; store "
+                f"{out.engine.cache.store.stats.as_dict()}; K1 launches "
+                f"{launches} on {card}")
+            check(out.engine.coalesced == 1 and res[1].coalesced,
+                  f"{what}: the isomorphic P1 was not coalesced")
+            runs[what] = (out, launches, wall)
+            del out
+        cold = runs["cold serve"][0].engine.cache.stats
+        check(cold.n_searches == 2, f"cold serve ran {cold.n_searches} "
+              f"searches, not 2")
+        lt = runs["restart, load-through"][0].engine.cache.stats
+        check(lt.n_searches == 0 and lt.persist_hits >= 2,
+              f"load-through restart: {lt.as_dict()}")
+        wd = runs["restart, --warm-from-disk"][0].engine.cache.stats
+        check(wd.n_searches == 0 and wd.preloads >= 2 and wd.misses == 0,
+              f"warm-from-disk restart: {wd.as_dict()}")
+        first = {w: r[0].results[0].latency_s for w, r in runs.items()}
+        log(f"phase 14: first-query (P1) latency: "
+            + ", ".join(f"{w} {s:.4f} s" for w, s in first.items())
+            + f" on {card}")
+        out_launches.update({f"level_expand.{k}":
+                             runs["cold serve"][1][k]
+                             for k in ("mask", "count", "signed")})
+        runs.clear()
+
+        warm_dir = os.path.join(tmp, "warmup")
+        for what in ("plan_warmup", "plan_warmup again"):
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = plan_warmup.main(["--cache-dir", warm_dir,
+                                       "--dataset", "tiny-er",
+                                       "--device", DEVICE])
+            lines = buf.getvalue().splitlines()
+            check(rc == 0, f"{what} exited {rc}: {lines[-3:]}")
+            log(f"phase 14: {what} P1-P6 x graphpi/graphzero x enum/iep on "
+                f"tiny-er: {time.perf_counter() - t0:.3f}s; {lines[-1]} "
+                f"on {card}")
+        check(" 0 searches" in lines[-1],
+              f"the plan_warmup rerun searched: {lines[-1]}")
+
+        # ---- 3: the live graph at full size
+        wiki = get_dataset(FRONT_WIKI)
+        cfg = ExecutorConfig(capacity=WIKI_CAPACITY,
+                             degree_buckets=auto_buckets(wiki))
+        t0 = time.perf_counter()
+        eng = QueryEngine(wiki, cfg=cfg, live=True, chunk=FRONT_LIVE_CHUNK,
+                          device=DEVICE)
+        log(f"phase 14: live engine on {FRONT_WIKI}: window "
+            f"{eng.live.window}, flat capacity {eng.live.flat_capacity}, "
+            f"triangles {eng.stats.tri_cnt}, built in "
+            f"{time.perf_counter() - t0:.3f}s")
+        check(eng.stats.tri_cnt == WIKI_TRIANGLES,
+              f"live triangles {eng.stats.tri_cnt}")
+
+        def live_count(what, pattern):
+            ticket = eng.enqueue(QueryRequest(pattern))
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            dispatches = 0
+            while not ticket.done:
+                eng.run_pending()
+                dispatches += eng.last_round_dispatches
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(ops.launches)
+            entry = next(e for e in eng.cache.entries()
+                         if e.canon_key == ticket.result.canon_key)
+            check_launches(f"live {what}", launches, entry.plan,
+                           dispatches > 0)
+            check_compact(f"live {what}", launches)
+            rebuilt = GraphCSR.from_edges(
+                wiki.n, eng.live.materialize_edges(), name="rebuilt")
+            scratch, s_wall, s_disp, _, _ = count_on(
+                f"{what} from scratch", rebuilt, entry.plan,
+                ExecutorConfig(capacity=WIKI_CAPACITY,
+                               degree_buckets=auto_buckets(rebuilt)),
+                device_graph(rebuilt, "cuda"))
+            got = ticket.result.count
+            check(got == scratch, f"live {what}: {got} != from-scratch "
+                  f"{scratch}")
+            m = eng._maintainer.counters()
+            log(f"phase 14: live {what}: count={got} (from scratch "
+                f"{scratch}); live recount {wall:.3f}s in {dispatches} "
+                f"dispatches, from-scratch count {s_wall:.3f}s in "
+                f"{s_disp} dispatches; epoch {eng.live.edge_epoch}, "
+                f"|E|={rebuilt.m}, overlay {eng.live.overlay_edges()} "
+                f"edges, compactions {eng.live.compactions}; maintainer "
+                f"{m}; rebinds {eng.matcher_rebinds}, rebuilds "
+                f"{eng.matcher_rebuilds}; K1 launches {launches} on {card}")
+            return got
+
+        tri = get_pattern("triangle")
+        live_count("triangles, epoch 0", tri)
+        searches = eng.cache.stats.n_searches
+        for epoch in (1, 2):
+            cur = eng.live.materialize_edges()
+            present = set(map(tuple, cur.tolist()))
+            ins = set()
+            while len(ins) < FRONT_LIVE_BATCH:
+                u, v = sorted(int(x) for x in rng.integers(0, wiki.n, 2))
+                if u != v and (u, v) not in present:
+                    ins.add((u, v))
+            dels = cur[rng.choice(len(cur), FRONT_LIVE_BATCH, replace=False)]
+            eng.request_mutation("insert_edges", sorted(ins))
+            eng.request_mutation("delete_edges", dels.tolist())
+            t0 = time.perf_counter()
+            eng.run_pending()           # applies the batches: no tickets
+            log(f"phase 14: live epoch {epoch}: {FRONT_LIVE_BATCH} inserts "
+                f"+ {FRONT_LIVE_BATCH} deletes applied and swapped in "
+                f"{time.perf_counter() - t0:.3f}s")
+            live_count(f"triangles, epoch {epoch}", tri)
+        eng.request_mutation("compact")
+        live_count("triangles after compact", tri)
+        check(eng.cache.stats.n_searches == searches,
+              f"live mutations re-searched: {eng.cache.stats.n_searches} "
+              f"!= {searches}")
+        live_count("P1 after compact", get_pattern("P1"))
+        check(eng.cache.stats.n_searches == searches + 1,
+              "P1 searched more than once")
+        check(eng.matcher_rebinds > 0, "no epoch swap was a rebind")
+        if eng.matcher_rebuilds:
+            log(f"phase 14: live: {eng.matcher_rebuilds} matcher rebuilds: "
+                f"the overlay grew its fixed shapes {eng.live.resizes} "
+                f"times (window {eng.live.window}, flat capacity "
+                f"{eng.live.flat_capacity})")
+        check(eng.matcher_rebuilds == 0 or eng.live.resizes > 0,
+              "a matcher was rebuilt without the overlay growing")
+        del eng
+
+        # ---- 4: the RPC front door, small-rmat, a server process and
+        # two client processes, one after the other (two tenants)
+        small = get_dataset(FRONT_SMALL)
+        edges = set(map(tuple, small.edge_array().tolist()))
+        ins = set()
+        while len(ins) < 16:
+            u, v = sorted(int(x) for x in rng.integers(0, small.n, 2))
+            if u != v and (u, v) not in edges:
+                ins.add((u, v))
+        queries = [{"pattern": "P1"}, {"pattern": "P2"},
+                   {"pattern": "triangle"}]
+        trace = queries + [{"mutate": "insert_edges",
+                            "edges": [list(e) for e in sorted(ins)]}] + queries
+        trace_path = os.path.join(tmp, "trace.jsonl")
+        with open(trace_path, "w") as f:
+            f.writelines(json.dumps(x) + "\n" for x in trace)
+        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+        port_file = os.path.join(tmp, "port")
+        server_log = os.path.join(tmp, "server.log")
+        t0 = time.perf_counter()
+        with open(server_log, "w") as slog:
+            server = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.gateway",
+                 "--no-lm", "--dataset", FRONT_SMALL, "--live",
+                 "--listen", "0", "--port-file", port_file,
+                 "--device", DEVICE], cwd=ROOT, env=env, stdout=slog,
+                stderr=subprocess.STDOUT)
+        try:
+            while not os.path.exists(port_file):
+                check(server.poll() is None, "RPC server exited: "
+                      + open(server_log).read()[-2000:])
+                check(time.perf_counter() - t0 < 300, "RPC server never "
+                      "wrote its port file")
+                time.sleep(0.2)
+            host, port = open(port_file).read().split()
+            log(f"phase 14: RPC server up on {host}:{port} in "
+                f"{time.perf_counter() - t0:.3f}s")
+
+            def client(tenant, *extra):
+                t0 = time.perf_counter()
+                done = subprocess.run(
+                    [sys.executable, "-m", "repro_torch.serve.rpc",
+                     "--connect", f"{host}:{port}", "--requests",
+                     trace_path, "--tenant", tenant, *extra],
+                    cwd=ROOT, env=env, capture_output=True, text=True,
+                    timeout=600)
+                check(done.returncode == 0, f"client {tenant} exited "
+                      f"{done.returncode}: {done.stdout[-2000:]} "
+                      f"{done.stderr[-2000:]}")
+                counts = [int(line.split("count=")[1].split()[0])
+                          for line in done.stdout.splitlines()
+                          if " count=" in line]
+                log(f"phase 14: RPC client {tenant}: {counts} in "
+                    f"{time.perf_counter() - t0:.3f}s")
+                return counts
+
+            got = client("a")
+            cl = RPCClient(host, int(port), tenant="probe", timeout=120.0)
+            try:
+                t0 = time.perf_counter()
+                for _ in range(20):
+                    cl.poll(0)
+                poll_ms = (time.perf_counter() - t0) / 20 * 1e3
+                cl.result(cl.submit({"pattern": "triangle"}))
+                t0 = time.perf_counter()
+                for _ in range(20):
+                    memo = cl.result(cl.submit({"pattern": "triangle"}))
+                query_ms = (time.perf_counter() - t0) / 20 * 1e3
+            finally:
+                cl.close()
+            log(f"phase 14: RPC round trip: poll {poll_ms:.3f} ms, submit "
+                f"+ result of a memoized triangle count {query_ms:.3f} ms "
+                f"(count {memo['count']}) on {card}")
+            got += client("b", "--shutdown")
+            rc = server.wait(timeout=120)
+            check(rc == 0, f"RPC server exited {rc}: "
+                  + open(server_log).read()[-2000:])
+        finally:
+            if server.poll() is None:
+                server.kill()
+                server.wait(timeout=60)
+        direct = QueryEngine(small, cfg=ExecutorConfig(), live=True,
+                             device=DEVICE)
+        want = []
+        for spec in trace + trace:
+            if "mutate" in spec:
+                direct.request_mutation(spec["mutate"], spec["edges"])
+                continue
+            ticket = direct.enqueue(QueryRequest(get_pattern(spec["pattern"])))
+            while not ticket.done:
+                direct.run_pending()
+            want.append(ticket.result.count)
+        check(got == want, f"RPC counts {got} != the direct engine's {want}")
+        check(want[:3] != want[3:6], "the mutation changed no count")
+        check(want[0] == RESULTS["small-rmat P1"],
+              f"small-rmat P1 {want[0]} != {RESULTS['small-rmat P1']}")
+        log(f"phase 14: RPC: {len(got)} tickets over two tenants equal the "
+            f"direct engine's over the same epochs")
+        p2 = want[1]
+        del direct
+
+        # ---- 5: graph + LM through launch.gateway, then launch.serve
+        L = get_config(ARCH).n_layers
+        argv = ["--dataset", FRONT_SMALL, "--workload", "smoke",
+                "--full-lm"] + FRONT_LM_ARGV
+        with PhaseLaunches() as rec:
+            t0 = time.perf_counter()
+            out = gateway.run(gateway.parse_args(argv),
+                              log=lambda line: log(f"phase 14: {line}"))
+            wall = time.perf_counter() - t0
+        check(out.rc == 0, f"graph + LM gateway exited {out.rc}")
+        check([r.count for r in out.results]
+              == [RESULTS["small-rmat P1"]] * 2 + [p2] * 2,
+              f"graph + LM counts {[r.count for r in out.results]}")
+        check(rec.records[0] == ("prefill", L)
+              and all(r == ("decode", 0) for r in rec.records[1:])
+              and rec.variants[0] == {"scalar": 0, "wgmma": L},
+              f"graph + LM: K4 launches per phase {rec.records}, per "
+              f"kernel {rec.variants}")
+        mixed = out.session.tokens_out()
+        m_mixed = out.session.metrics()
+        rep = out.gateway.report()
+        del out
+        rec.sessions.clear()
+        with PhaseLaunches() as rec:
+            check(serve.main(FRONT_LM_ARGV) == 0, "serve.main failed")
+        solo = rec.sessions[0]
+        check(rec.records[0] == ("prefill", L), f"serve.main: K4 launches "
+              f"{rec.records}")
+        check(mixed.shape == (2, 9) and (mixed == solo.tokens_out()).all(),
+              "graph + LM tokens differ from launch.serve's")
+        m_solo = solo.metrics()
+        rec.sessions.clear()
+        del solo
+        out_launches["flash_attention"] = L
+        for name, wr in rep["workloads"].items():
+            tm = wr["turn_item_ms"]
+            log(f"phase 14: graph + LM: {name} per-item turn p50 "
+                + ", ".join(f"{b} {tm[b]['p50_ms']:.3f} ms (n={tm[b]['n']})"
+                            for b in ("solo", "contended"))
+                + f" on {card}")
+        log(f"phase 14: graph + LM in {wall:.3f}s: tokens equal "
+            f"launch.serve's; decode {m_mixed['ms_per_step']:.3f} ms/step "
+            f"beside the graph tenant, {m_solo['ms_per_step']:.3f} alone; "
+            f"prefill {m_mixed['prefill_seconds']:.4f} s / "
+            f"{m_solo['prefill_seconds']:.4f} s; K4 launches per prefill "
+            f"{L}, all wgmma, on {card}")
+    log(f"phase 14: front door checks in {time.perf_counter() - t_phase:.1f}s")
+    return out_launches
+
+
 def ptxas_summary(log_text: str) -> list:
     """(kernel, registers, spill store bytes, spill load bytes) for each
     entry function of an `nvcc -Xptxas -v` log; names demangled by
@@ -2390,6 +2822,9 @@ def main() -> int:
         if k["name"] == "level_expand.window":
             k["launches"] = RESULTS["K1 window launches"]
     engine_phase(card)
+    front = front_door_phase(card)
+    for k in kernels:
+        k["front_door_launches"] = front.get(k["name"])
     log(f"done in {time.perf_counter() - t_all:.1f}s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -214,3 +214,68 @@ class GraphCSR:
                 out.append((u, int(v)))
         return np.asarray(out, dtype=np.int64).reshape(-1, 2)
 
+
+@dataclass(frozen=True)
+class GraphView:
+    """Overlay-aware CSR view (live/overlay.py builds these); the
+    reference's `GraphView`.
+
+    Same duck type the executor consumes (`n`, `indptr`, `indices`,
+    `degrees`, `max_degree`, `labels`, `fingerprint`) with two deliberate
+    departures from `GraphCSR`:
+
+      * `indptr` holds per-row STARTS, not prefix sums — a mutated
+        (dirty) row points into the patch region appended after the base
+        flat array, so `indptr[v + 1]` is NOT row v's end.  The executor
+        reads every row as ``[indptr[v], indptr[v] + degrees[v])``
+        (gather windows, the binary-search membership test, and K1's
+        row-sourced entries, which take (start, len) pairs), so this is
+        invisible to it; host code must use :meth:`neighbors`, never
+        slice between consecutive offsets.
+      * `max_degree` reports the overlay's fixed gather `window`, which
+        over-provisions the true max degree by the mutation headroom.
+        That keeps the candidate-window width a matcher is built for
+        IDENTICAL across epochs, so a mutation swap is a
+        `Matcher.rebind`, never a rebuild.
+
+    `fingerprint` is a precomputed content key (the overlay's edge-delta
+    digest, O(1) to read) rather than a hash of the arrays: views are
+    rebuilt per epoch and per-round identity checks must not re-hash the
+    adjacency (live/epoch.py).
+    """
+
+    n: int                      # vertices
+    m: int                      # undirected edges at this epoch
+    indptr: np.ndarray          # [n+1] int32 row STARTS (see above)
+    indices: np.ndarray         # [flat_capacity] int32, sentinel-padded
+    degrees: np.ndarray         # [n] int32 row lengths
+    window: int                 # static gather width (>= any row length)
+    fingerprint: str            # content key: base ⊕ delta digest
+    name: str = ""
+    labels: np.ndarray | None = None    # live views are unlabeled
+
+    @property
+    def max_degree(self) -> int:
+        """The static gather window, NOT the true max degree — every
+        matcher is built for this candidate width, so it must be
+        epoch-stable (and ≥ every actual row length)."""
+        return self.window
+
+    def neighbors(self, v: int) -> np.ndarray:
+        s = int(self.indptr[v])
+        return self.indices[s : s + int(self.degrees[v])]
+
+    def has_edge(self, u: int, v: int) -> bool:
+        nb = self.neighbors(u)
+        i = np.searchsorted(nb, v)
+        return bool(i < len(nb) and nb[i] == v)
+
+    def edge_array(self) -> np.ndarray:
+        """Undirected [m, 2] array (u < v) — oracle verification reads
+        the PATCHED rows, so it sees base ⊕ delta."""
+        out = []
+        for u in range(self.n):
+            nb = self.neighbors(u)
+            for v in nb[nb > u]:
+                out.append((u, int(v)))
+        return np.asarray(out, dtype=np.int64).reshape(-1, 2)

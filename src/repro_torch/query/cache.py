@@ -18,10 +18,16 @@ whose `kernel=` facet stands where the reference has `pallas=`.
 Eviction beyond `max_entries` is LRU, and evicted matchers are
 `release()`d.
 
-Left out until their slices land: the `PlanStore` load-through /
-write-behind with its AOT executables (the store slice) and
-`ShardedMatcher` (multi-GPU).  `CacheStats` keeps their counters, which
-stay 0, so a snapshot has the reference's keys.
+With a `PlanStore` attached (query/store.py) the cache is load-through /
+write-behind: an in-memory miss first consults the on-disk index — a
+persisted entry skips the configuration search (`persist_hits`) and
+only warms its matcher; a full miss writes the searched result back
+after warmup; `preload` (warm-from-disk) installs every compatible
+record before the first request (`preloads`).  The store holds no
+executables, so the reference's AOT counters (`aot_loads`,
+`aot_load_fails`, `export_fails`, `aot_load_seconds`) stay 0 and a
+snapshot keeps the reference's keys.  `ShardedMatcher` waits for the
+multi-GPU slice.
 """
 from __future__ import annotations
 
@@ -127,10 +133,10 @@ class CacheStats:
     n_searches: int = 0          # configuration searches actually run
     n_compiles: int = 0          # matcher warmups
     evictions: int = 0
-    persist_hits: int = 0        # the store's counters: 0 until the
-    preloads: int = 0            # plan store is ported
-    aot_loads: int = 0
-    aot_load_fails: int = 0
+    persist_hits: int = 0        # misses served from the on-disk store
+    preloads: int = 0            # entries installed by warm-from-disk
+    aot_loads: int = 0           # no executables in the port's store:
+    aot_load_fails: int = 0      # these three stay 0
     export_fails: int = 0
     search_seconds: float = 0.0
     compile_seconds: float = 0.0
@@ -141,10 +147,12 @@ class CacheStats:
 
 
 class PlanCache:
-    """LRU cache of warmed (Configuration, MatchingPlan, Matcher) triples."""
+    """LRU cache of warmed (Configuration, MatchingPlan, Matcher) triples,
+    optionally backed by a persistent on-disk `PlanStore`."""
 
-    def __init__(self, *, max_entries: int | None = None):
+    def __init__(self, *, max_entries: int | None = None, store=None):
         self.max_entries = max_entries
+        self.store = store                    # PlanStore | None
         self.stats = CacheStats()
         self._entries: OrderedDict[tuple, CacheEntry] = OrderedDict()
 
@@ -181,10 +189,12 @@ class PlanCache:
         warm: bool = True,
         graph_fp: tuple | None = None,
     ) -> tuple[CacheEntry, bool]:
-        """Return (entry, was_hit).  Misses run the configuration search,
-        build the plan and (when `warm`) warm the matcher on `device`
-        before the entry becomes visible — a hit never searches or
-        warms.  `graph_fp` overrides the graph facet of the key."""
+        """Return (entry, was_hit).  Misses run the configuration search
+        (or load it from the store), build the plan and (when `warm`)
+        warm the matcher on `device` before the entry becomes visible —
+        a hit never searches or warms.  `graph_fp` overrides the graph
+        facet of the key: live engines pass their `EpochStamp.plan_key`
+        (stable across edge mutations) so plans survive churn."""
         if mode not in MODES:
             raise ValueError(f"unknown mode {mode!r}; have {MODES}")
         cfg = cfg or ExecutorConfig()
@@ -203,6 +213,17 @@ class PlanCache:
             return entry, True
 
         self.stats.misses += 1
+        # load-through: a persisted entry skips the configuration search
+        if self.store is not None:
+            rec = self.store.load(key)
+            if rec is not None:
+                self.stats.persist_hits += 1
+                entry = self._install_record(rec, key, graph, cfg=cfg,
+                                             chunk=chunk, arrays=arrays,
+                                             device=device, warm=warm)
+                self._insert(key, entry)
+                return entry, False
+
         with get_tracer().span("cache.search", canon_key=key[0],
                                mode=mode), timer() as t:
             config, plan = plan_for(pattern, stats, mode=mode,
@@ -211,23 +232,83 @@ class PlanCache:
         self.stats.n_searches += 1
         self.stats.search_seconds += search_s
 
-        matcher = Matcher(graph, plan, cfg, arrays=arrays, device=device)
-        compile_s = 0.0
-        if warm:
-            with get_tracer().span("cache.compile", canon_key=key[0],
-                                   mode=mode), timer() as t:
-                matcher.warmup(chunk=chunk)
-            compile_s = t.seconds
-            self.stats.n_compiles += 1
-            self.stats.compile_seconds += compile_s
-
+        matcher, compile_s = self._matcher(
+            "cache.compile", plan, key, graph, cfg=cfg, chunk=chunk,
+            arrays=arrays, device=device, warm=warm)
         entry = CacheEntry(
             canon_key=key[0], pattern=plan.pattern, config=config,
             plan=plan, matcher=matcher, mode=mode,
             search_seconds=search_s, compile_seconds=compile_s,
         )
+        # write-behind: persist the searched result
+        if self.store is not None:
+            self.store.save(key, pattern=plan.pattern, config=config,
+                            plan=plan, search_seconds=search_s,
+                            compile_seconds=compile_s)
         self._insert(key, entry)
         return entry, False
+
+    # -------------------------------------------------------- persistence
+    def _matcher(self, span: str, plan: MatchingPlan, key: tuple,
+                 graph: GraphCSR, *, cfg: ExecutorConfig, chunk: int | None,
+                 arrays, device, warm: bool) -> tuple[Matcher, float]:
+        """A matcher for `plan`, warmed (and counted as a compile) when
+        `warm`; returns it with the warmup's seconds."""
+        matcher = Matcher(graph, plan, cfg, arrays=arrays, device=device)
+        compile_s = 0.0
+        if warm:
+            with get_tracer().span(span, canon_key=key[0], mode=key[3]), \
+                    timer() as t:
+                matcher.warmup(chunk=chunk)
+            compile_s = t.seconds
+            self.stats.n_compiles += 1
+            self.stats.compile_seconds += compile_s
+        return matcher, compile_s
+
+    def _install_record(self, rec, key: tuple, graph: GraphCSR, *,
+                        cfg: ExecutorConfig, chunk: int | None, arrays,
+                        device, warm: bool) -> CacheEntry:
+        """Turn a loaded StoreRecord into a live warmed entry: no
+        configuration search; the matcher's warmup counts as a compile,
+        as in the reference's fallback when no executable installs."""
+        matcher, compile_s = self._matcher(
+            "cache.warm", rec.plan, key, graph, cfg=cfg, chunk=chunk,
+            arrays=arrays, device=device, warm=warm)
+        return CacheEntry(
+            canon_key=key[0], pattern=rec.pattern, config=rec.config,
+            plan=rec.plan, matcher=matcher, mode=rec.mode,
+            search_seconds=0.0, compile_seconds=compile_s,
+        )
+
+    def preload(self, graph: GraphCSR, stats: GraphStats, *,
+                cfg: ExecutorConfig | None = None, chunk: int | None = None,
+                arrays=None, device="cuda", warm: bool = True,
+                graph_fp: tuple | None = None) -> int:
+        """Warm-from-disk: install every store record compatible with the
+        current serving context (same graph/executor/layout fingerprints
+        — checked by re-deriving each record's key digest) before the
+        first request arrives.  Returns the number of entries installed.
+        `graph_fp` as in :meth:`get_or_build`."""
+        if self.store is None:
+            return 0
+        from .store import key_digest
+
+        cfg = cfg or ExecutorConfig()
+        gfp = (graph_fp if graph_fp is not None
+               else graph_fingerprint(graph, stats))
+        lfp = layout_fingerprint(chunk, cfg)
+        installed = 0
+        for rec in self.store.records():
+            key = self.entry_key(rec.pattern, gfp, cfg, mode=rec.mode,
+                                 use_iep=rec.use_iep, layout_fp=lfp)
+            if key_digest(key) != rec.digest or key in self._entries:
+                continue
+            self.stats.preloads += 1
+            self._insert(key, self._install_record(
+                rec, key, graph, cfg=cfg, chunk=chunk, arrays=arrays,
+                device=device, warm=warm))
+            installed += 1
+        return installed
 
     def _insert(self, key: tuple, entry: CacheEntry) -> None:
         self._entries[key] = entry

@@ -29,10 +29,22 @@ issues at most `k` dispatches of the chunked outer loop; a class still
 mid-count checkpoints its span stack (`CountState`) and resumes in a
 later round, rotated behind other waiting classes, bit-identically.
 
+Persistence: with a `PlanStore` (``store=``, or a cache built with
+one) plans are loaded through and written behind, graph statistics are
+read from the store at startup, and ``warm_from_disk()`` preloads every
+compatible record, so a restarted replica runs no configuration search.
+
+Live graph: ``live=True`` (or a prebuilt `DeltaOverlay`) serves over a
+mutable graph.  ``request_mutation`` queues insert/delete/compact verbs
+that apply atomically at round boundaries; every cached matcher then
+swaps in the new epoch's tensors by `Matcher.rebind` (no re-search, no
+rebuild while the overlay's fixed shapes hold), plans key on the
+stats-epoch plan key, and a `CountMaintainer` memoizes counts on the
+edge-epoch key and recounts only dirty root spans.
+
 The constructor takes ``device=`` (default ``"cuda"``, which raises
-without a card) where the reference takes ``mesh=`` / ``axis=``.  Left
-out until their slices land: the live graph (``live=`` and the mutation
-verbs) and the plan store (``store=``, ``warm_from_disk``).
+without a card) where the reference takes ``mesh=`` / ``axis=``;
+`ShardedMatcher` waits for the multi-GPU slice.
 """
 from __future__ import annotations
 
@@ -40,14 +52,16 @@ import warnings
 from collections import deque
 from dataclasses import dataclass
 
-from ..core.executor import ExecutorConfig, compute_stats, device_graph
+from ..core.executor import (ExecutorConfig, Matcher, compute_stats,
+                             device_graph)
 from ..core.pattern import Pattern
 from ..core.perf_model import GraphStats
 from ..device import resolve_device
 from ..graph.csr import GraphCSR
+from ..live import (CompactionPolicy, CountMaintainer, DeltaOverlay,
+                    EpochStamp, maybe_compact, stats_drifted)
 from ..obs import MetricsRegistry, get_tracer, latency_summary, timer
-from .cache import (DEFAULT_MAX_ENTRIES, CacheEntry, PlanCache,
-                    graph_fingerprint)
+from .cache import DEFAULT_MAX_ENTRIES, CacheEntry, PlanCache
 from .canon import canonical_key
 
 DEFAULT_TENANT = "default"
@@ -132,7 +146,7 @@ class AdmissionRejected(RuntimeError):
 @dataclass
 class Ticket:
     """Handle for an enqueued request; resolves when a round executes it
-    (``QueryEngine.run_pending``)."""
+    (``QueryEngine.run_pending`` or the Gateway's graph workload)."""
 
     request: QueryRequest
     seq: int
@@ -148,7 +162,7 @@ class Ticket:
         if self._result is None:
             raise RuntimeError(
                 f"ticket #{self.seq} not resolved yet — run the engine's "
-                f"pending queue (run_pending)")
+                f"pending queue (run_pending) or schedule it via the Gateway")
         return self._result
 
 
@@ -186,29 +200,69 @@ class QueryEngine:
              mid-count when the budget runs out is checkpointed and
              rotated behind other waiting classes.  ``None`` = run every
              class in the round to completion.
+    store:   optional `PlanStore` attached to the cache (persistence).
+    live:    ``True`` (or a prebuilt `DeltaOverlay`) serves over a
+             MUTABLE graph (see the module docstring).
+    compaction_policy: live-mode thresholds (`live.CompactionPolicy`).
     """
 
     def __init__(self, graph: GraphCSR, *, cfg: ExecutorConfig | None = None,
                  chunk: int | None = None, device="cuda",
                  cache: PlanCache | None = None,
+                 store=None,
                  stats: GraphStats | None = None,
                  metrics: MetricsRegistry | None = None,
                  tenant_depth: int | None = None,
                  tenant_shares: dict[str, int] | None = None,
-                 preempt_dispatches: int | None = None):
+                 preempt_dispatches: int | None = None,
+                 live=None,
+                 compaction_policy: CompactionPolicy | None = None):
+        if live is True:
+            live = DeltaOverlay(graph)
+        elif live is not None and not isinstance(live, DeltaOverlay):
+            raise TypeError(
+                f"live must be True or a DeltaOverlay, got {type(live)!r}")
+        self.live = live
+        if live is not None:
+            graph = live.view              # executor-facing adjacency
         self.graph = graph
         self.cfg = cfg or ExecutorConfig()
         self.chunk = chunk
         self.device = resolve_device(device)
-        self.cache = cache or PlanCache(max_entries=DEFAULT_MAX_ENTRIES)
+        if cache is None:
+            cache = PlanCache(max_entries=DEFAULT_MAX_ENTRIES, store=store)
+        elif store is not None and cache.store is None:
+            cache.store = store            # attach persistence to the
+        self.cache = cache                 # caller-provided cache
         self._arrays = device_graph(graph, self.device)   # ONE upload
         with timer() as t:
             if stats is None:
-                stats = compute_stats(graph, self.cfg, device=self.device,
-                                      arrays=self._arrays)
+                # a restarted engine skips the startup triangle count when
+                # the store has a stats record for this exact graph
+                if self.cache.store is not None:
+                    stats = self.cache.store.load_graph_stats(
+                        graph.fingerprint)
+                if stats is None:
+                    stats = compute_stats(graph, self.cfg,
+                                          device=self.device,
+                                          arrays=self._arrays)
+                    if self.cache.store is not None:
+                        self.cache.store.save_graph_stats(
+                            graph.fingerprint, stats)
         self.stats = stats
         self.stats_seconds = t.seconds
-        self._graph_fp = graph_fingerprint(graph, stats)
+        # round-boundary epoch identity: serving code carries THIS stamp,
+        # never raw fingerprints
+        self._epoch = (EpochStamp.for_live(live, stats) if live is not None
+                       else EpochStamp.legacy(graph, stats))
+        self._maintainer = (CountMaintainer(live) if live is not None
+                            else None)
+        self.compaction_policy = compaction_policy or CompactionPolicy()
+        self._mutations: deque = deque()       # queued (verb, edges) batches
+        self.mutations_applied = 0             # effective edge changes
+        self.last_round_mutations = 0          # batches applied last round
+        self.matcher_rebinds = 0               # epoch swaps, no rebuild
+        self.matcher_rebuilds = 0              # shape-growth rebuilds
         # registries are per-engine; launchers that want one pane pass a
         # shared instance
         self.metrics = metrics if metrics is not None else MetricsRegistry()
@@ -232,7 +286,8 @@ class QueryEngine:
         self._resolved_by_tenant: dict[str, int] = {}
 
     def _collect(self) -> dict:
-        """Engine and cache counters for `metrics.snapshot()`."""
+        """Engine, cache, store and live counters for
+        `metrics.snapshot()`."""
         out = {
             "engine.requests_resolved": self.requests_resolved,
             "engine.executions": self.executions,
@@ -245,6 +300,22 @@ class QueryEngine:
         }
         for k, v in self.cache.stats.as_dict().items():
             out[f"cache.{k}"] = v
+        if self.cache.store is not None:
+            for k, v in self.cache.store.stats.as_dict().items():
+                out[f"store.{k}"] = v
+        if self.live is not None:
+            out.update({
+                "live.epoch": self.live.edge_epoch,
+                "live.stats_epoch": self.live.stats_epoch,
+                "live.overlay_edges": self.live.overlay_edges(),
+                "live.compactions": self.live.compactions,
+                "live.mutations_applied": self.mutations_applied,
+                "live.pending_mutations": len(self._mutations),
+                "live.matcher_rebinds": self.matcher_rebinds,
+                "live.matcher_rebuilds": self.matcher_rebuilds,
+            })
+            for k, v in self._maintainer.counters().items():
+                out[f"live.{k}"] = v
         return out
 
     # ------------------------------------------------------ async serving
@@ -258,7 +329,7 @@ class QueryEngine:
                 request.pattern, self.graph, self.stats,
                 cfg=self.cfg, mode=request.mode, use_iep=request.use_iep,
                 chunk=self.chunk, arrays=self._arrays, device=self.device,
-                graph_fp=self._graph_fp,
+                graph_fp=self._epoch.plan_key,
             )
             sp.set(cache_hit=hit, canon_key=entry.canon_key)
         return PlannedQuery(entry=entry, cache_hit=hit)
@@ -314,6 +385,103 @@ class QueryEngine:
         """Tickets taken into a round whose class is still mid-count."""
         return sum(len(f.tickets) for f in self._inflight)
 
+    # --------------------------------------------------------- mutation
+    def mutations_pending(self) -> int:
+        """Queued mutation batches (0 for non-live engines — safe for
+        schedulers to poll unconditionally)."""
+        return len(self._mutations)
+
+    def request_mutation(self, verb: str, edges=None) -> dict:
+        """Queue one mutation batch (`insert_edges` / `delete_edges` /
+        `compact`).  Batches apply atomically at the START of the next
+        round — never under an in-flight `CountState` — so a query
+        submitted after this call is answered on the post-mutation
+        epoch.  Returns an ack with the queue depth and current epoch."""
+        if self.live is None:
+            raise RuntimeError(
+                "engine is not live: construct QueryEngine(..., live=True) "
+                "to serve mutate verbs")
+        from ..live import MUTATION_VERBS
+
+        if verb not in MUTATION_VERBS:
+            raise ValueError(
+                f"unknown mutation verb {verb!r}; have {MUTATION_VERBS}")
+        batch = None
+        if verb != "compact":
+            batch = [(int(e[0]), int(e[1])) for e in (edges or ())]
+        self._mutations.append((verb, batch))
+        return {
+            "verb": verb,
+            "queued_edges": 0 if batch is None else len(batch),
+            "pending_batches": len(self._mutations),
+            "edge_epoch": self.live.edge_epoch,
+        }
+
+    def _apply_mutations(self) -> int:
+        """Drain the mutation queue at a round boundary.
+
+        In-flight groups are RE-ENQUEUED (their tickets return to the
+        head of their tenant queues in admission order and the partial
+        states are dropped): a preempted count never resumes across an
+        epoch, so every resolved count is computed on one epoch."""
+        live = self.live
+        batches = len(self._mutations)
+        requeue = [t for fl in self._inflight for t in fl.tickets]
+        with get_tracer().span("engine.mutate", batches=batches,
+                               requeued=len(requeue)):
+            self._inflight.clear()
+            for t in sorted(requeue, key=lambda t: t.seq, reverse=True):
+                self._queues.setdefault(t.request.tenant,
+                                        deque()).appendleft(t)
+            applied = 0
+            while self._mutations:
+                verb, batch = self._mutations.popleft()
+                applied += live.apply(verb, batch)
+            maybe_compact(live, self.compaction_policy)
+            if stats_drifted(live, self.stats, self.compaction_policy):
+                # |E| moved materially: plans stay valid but their
+                # perf-model ranking is stale — bump the stats epoch so
+                # the next plan() re-searches under fresh statistics
+                live.stats_epoch += 1
+                self.stats = compute_stats(live.view, self.cfg,
+                                           device=self.device)
+                if self.cache.store is not None:
+                    self.cache.store.save_graph_stats(
+                        live.view.fingerprint, self.stats)
+            self._refresh_live()
+        self.mutations_applied += applied
+        self.last_round_mutations = batches
+        if self.cache.store is not None:
+            self.cache.store.save_overlay(live.to_record())
+        return applied
+
+    def _refresh_live(self) -> None:
+        """Swap the new epoch's view and device tensors into the engine
+        and every cached matcher.  The overlay's fixed shapes make this a
+        `Matcher.rebind`; genuine growth rebuilds a matcher (counted in
+        `cache.stats.n_compiles` and `matcher_rebuilds`)."""
+        live = self.live
+        view = live.view
+        arrays = device_graph(view, self.device)
+        for entry in self.cache.entries():
+            try:
+                entry.matcher.rebind(arrays, graph=view)
+                self.matcher_rebinds += 1
+            except ValueError:
+                matcher = Matcher(view, entry.plan, self.cfg, arrays=arrays,
+                                  device=self.device)
+                matcher.warmup(chunk=self.chunk)
+                self.cache.stats.n_compiles += 1
+                entry.matcher.release()
+                entry.matcher = matcher
+                self.matcher_rebuilds += 1
+        self.graph = view
+        self._arrays = arrays
+        self._epoch = EpochStamp.for_live(live, self.stats)
+        # oracle memos are content-addressed to the old epoch
+        self._oracle.clear()
+        self._edges = None
+
     @staticmethod
     def _group_key(request: QueryRequest) -> tuple:
         # mirrors PlanCache.entry_key: naive ignores use_iep
@@ -357,6 +525,11 @@ class QueryEngine:
                     else max_dispatches)
         remaining = None if budget_n is None else max(int(budget_n), 1)
         self.last_round_dispatches = 0
+        self.last_round_mutations = 0
+        if self._mutations:
+            # round boundary: apply queued mutations BEFORE taking
+            # tickets, so everything executed below runs on one epoch
+            self._apply_mutations()
         take = self._take_tickets(limit)
         fresh = 0
         for t in take:
@@ -410,8 +583,13 @@ class QueryEngine:
                 riders=len(fl.tickets) - 1,
                 resumed=fl.state is not None):
             with timer() as t_run:
-                fl.state, out = entry.count_partial(
-                    fl.state, chunk=self.chunk, max_dispatches=remaining)
+                if self._maintainer is not None:
+                    fl.state, out = self._maintainer.count_partial(
+                        fl.key, entry, fl.state, chunk=self.chunk,
+                        max_dispatches=remaining)
+                else:
+                    fl.state, out = entry.count_partial(
+                        fl.state, chunk=self.chunk, max_dispatches=remaining)
             fl.seconds += t_run.seconds
         used = max(fl.state.dispatches - before, 0)
         if out is None:
@@ -503,6 +681,16 @@ class QueryEngine:
             out.append(ticket.result)
         return out
 
+    def warm_from_disk(self) -> int:
+        """Preload every persisted plan compatible with this engine's
+        (graph, executor, layout) before the first request arrives, so a
+        restarted replica serves warm from query one.  Returns the
+        number of entries installed (0 without an attached store)."""
+        return self.cache.preload(
+            self.graph, self.stats, cfg=self.cfg, chunk=self.chunk,
+            arrays=self._arrays, device=self.device,
+            graph_fp=self._epoch.plan_key)
+
     # ------------------------------------------------------------- reporting
     def latency_percentiles(self, tenant: str | None = None) -> dict:
         """Per-query wall-latency summary (n / p50_ms / p95_ms / p99_ms /
@@ -529,7 +717,7 @@ class QueryEngine:
         return out
 
     def summary(self) -> dict:
-        return {
+        out = {
             "graph": self.graph.name,
             "devices": 1,
             "device": str(self.device),
@@ -544,3 +732,17 @@ class QueryEngine:
             "rejections": sum(self.rejections.values()),
             "tenants": self.tenant_report(),
         }
+        if self.cache.store is not None:
+            out["store"] = self.cache.store.stats.as_dict()
+        if self.live is not None:
+            out["live"] = {
+                "edge_epoch": self.live.edge_epoch,
+                "stats_epoch": self.live.stats_epoch,
+                "overlay_edges": self.live.overlay_edges(),
+                "compactions": self.live.compactions,
+                "mutations_applied": self.mutations_applied,
+                "matcher_rebinds": self.matcher_rebinds,
+                "matcher_rebuilds": self.matcher_rebuilds,
+                **self._maintainer.counters(),
+            }
+        return out

@@ -1,1 +1,2 @@
-# LM serving: steps, session, scheduler and gateway.
+# Serving: steps, session, scheduler, the gateway (graph and LM tenants)
+# and its RPC front door.

@@ -5,22 +5,29 @@ the single object that owns the process's device and co-schedules
 heterogeneous tenants on it:
 
     gw = Gateway(device=torch.device("cuda"))
+    graph = gw.add(GraphQueryWorkload(engine, requests),
+                   Share(quantum=4))
     lm = gw.add(LMDecodeWorkload(LMSession("qwen3-1.7b", smoke=True)),
                 Share(quantum=2, weight=2))
     gw.run()
     print(gw.report())
 
 Workloads implement the `Workload` protocol (scheduler.py): warmup(),
-ready(), step(quantum), metrics().  The port ships `LMDecodeWorkload`,
-which wraps an `LMSession`: each step runs `quantum` greedy decode
-steps (resumable via the session's checkpoints).  The graph-query
-tenant (`GraphQueryWorkload`) waits for the query engine's port
-(ROADMAP.md queue 1, item 4).
+ready(), step(quantum), metrics().  The two shipped implementations:
+
+  * `GraphQueryWorkload` — wraps a `QueryEngine`'s ticket queue; each
+    step executes one coalescing round (`run_pending`): same-class
+    duplicate queries in the round cost ONE execution, distinct classes
+    run back-to-back on the warmed resident graph.
+  * `LMDecodeWorkload` — wraps an `LMSession`; each step runs `quantum`
+    greedy decode steps (resumable via the session's checkpoints).
 
 The gateway's report includes, per workload, the scheduler-level turn
 latencies split into *solo* (no other workload was ready that round)
-vs *contended* (another tenant was hot).  `launch/serve.py` schedules a
-single LM workload through it.
+vs *contended* (another tenant was hot).  Every launcher is a thin
+client of this module: `launch/gateway.py` runs mixed traffic (and the
+RPC front door, serve/rpc.py), `launch/query_serve.py` schedules a
+single graph workload and `launch/serve.py` a single LM workload.
 """
 from __future__ import annotations
 
@@ -33,12 +40,87 @@ from .scheduler import RoundScheduler, Share, StepReport, Workload
 
 __all__ = [
     "Gateway",
+    "GraphQueryWorkload",
     "LMDecodeWorkload",
     "RoundScheduler",
     "Share",
     "StepReport",
     "Workload",
 ]
+
+
+class GraphQueryWorkload:
+    """Pattern-query tenant: a `QueryEngine` ticket queue as a Workload.
+
+    `prewarm=True` resolves every distinct isomorphism class in the
+    initial queue during warmup() (search + warmup, no counting), so
+    scheduled rounds measure steady-state execution; serving CLIs keep
+    the default and pay cold costs in-round.
+    """
+
+    def __init__(self, engine, requests=(), *, name: str = "graph",
+                 prewarm: bool = False):
+        self.engine = engine
+        self.name = name
+        self.prewarm = prewarm
+        self.tickets = [engine.enqueue(r) for r in requests]
+
+    def add(self, request):
+        ticket = self.engine.enqueue(request)
+        self.tickets.append(ticket)
+        return ticket
+
+    def warmup(self) -> None:
+        if not self.prewarm:
+            return
+        seen = set()
+        for t in self.tickets:
+            if t.done:
+                continue
+            key = self.engine._group_key(t.request)
+            if key not in seen:
+                seen.add(key)
+                self.engine.plan(t.request)
+
+    def ready(self) -> bool:
+        # a preempted class (taken off the queue, mid-count) still needs
+        # rounds to finish; so do queued mutations (live engines apply
+        # them at round boundaries)
+        return (self.engine.pending() > 0 or self.engine.inflight() > 0
+                or self.engine.mutations_pending() > 0)
+
+    def step(self, quantum: int) -> StepReport:
+        with timer() as t:
+            resolved = self.engine.run_pending(limit=quantum)
+        # a fully-preempted quantum resolves zero tickets but dispatched
+        # real work — and a mutation-only round made progress too:
+        # report it so the scheduler keeps rounds coming
+        return StepReport(
+            items=len(resolved), seconds=t.seconds,
+            progressed=bool(resolved)
+            or self.engine.last_round_dispatches > 0
+            or self.engine.last_round_mutations > 0)
+
+    def results(self):
+        """Resolved results in admission order (unresolved tickets are
+        skipped — drain the queue first via Gateway.run)."""
+        return [t.result for t in self.tickets if t.done]
+
+    def metrics(self) -> dict:
+        eng = self.engine
+        return {
+            "requests": eng.requests_resolved,
+            "executions": eng.executions,
+            "coalesced": eng.coalesced,
+            "pending": eng.pending(),
+            "inflight": eng.inflight(),
+            "preemptions": eng.preemptions,
+            "rejections": sum(eng.rejections.values()),
+            "latency": eng.latency_percentiles(),
+            "tenants": eng.tenant_report(),
+            "cache_hits": eng.cache.stats.hits,
+            "cache_misses": eng.cache.stats.misses,
+        }
 
 
 class LMDecodeWorkload:
@@ -80,10 +162,10 @@ class Gateway:
     """Owns the process's device and schedules registered workloads on
     it.
 
-    The device is *advisory glue*: workloads that need it (the LM
-    session) are constructed against `Gateway.device`, so there is
-    exactly one device per process and the scheduler is the only
-    interleaving authority."""
+    The device is *advisory glue*: workloads that need it (the query
+    engine, the LM session) are constructed against `Gateway.device`,
+    so there is exactly one device per process and the scheduler is the
+    only interleaving authority."""
 
     device: object = None
     scheduler: RoundScheduler = field(default_factory=RoundScheduler)
@@ -108,8 +190,9 @@ class Gateway:
         self._warmed = True
 
     def run_round(self) -> tuple[int, bool] | None:
-        """Drive exactly ONE scheduler round (warm first, once), for a
-        caller that interleaves rounds with its own event loop.
+        """Drive exactly ONE scheduler round (warm first, once).  The
+        RPC server's event loop calls this between socket reads so N
+        remote clients share the resident graph without threads.
         Returns None when no workload is ready, else (items, progressed)
         — the trace accumulates across calls."""
         if not self._warmed:
