@@ -31,8 +31,8 @@ run outside a checkout of this repository.  Phases, one line each:
     counts held to the reference oracle's values;
  4. full size, wiki-vote-syn (8,192 vertices, 79,597 edges): the
     triangle count on both paths; P1 on the kernel path under the
-    graphpi plan, the graphzero plan with and without its IEP tail and
-    the naive plan (÷ |Aut|); both paths on the roots v0 ∈ [96, 112),
+    graphpi plan, the graphzero plan with its IEP tail and the naive
+    plan (÷ |Aut|); both paths on the roots v0 ∈ [96, 112),
     and that slice on the kernel path under torch.profiler with the
     graphpi and the graphzero IEP plans (device kernel time against
     unprofiled wall, K1's time per kernel, top kernels; the
@@ -129,6 +129,20 @@ run outside a checkout of this repository.  Phases, one line each:
     prompt, 8 steps beside small-rmat P1/P2), its greedy tokens equal to
     `launch.serve`'s with the same seed, 28 wgmma launches of K4 in the
     prefill, the solo and contended turn times printed.
+15. multi-GPU counting (`ShardedMatcher`, one process per GPU under
+    `torch.distributed`): one rank under NCCL through
+    `count_embeddings_sharded` on small-rmat (the triangle and P1); then
+    `torchrun` with 2 and with 4 ranks sharing the card under gloo (the
+    backend rule of `launch/mesh.py`), through `launch.mine` (the
+    triangle) and `launch.query_serve` (the triangle, P1 and an
+    isomorphic P1 coalesced with it, whole P1 at the stripe chunk
+    `SHARD_P1_CHUNK`) on wiki-vote-syn from capacity 2^20; where the
+    machine has more than one card, both launchers again with a card per
+    rank under NCCL.  Each run checks the backend, the counts against phase
+    4's single-device values, every rank's exit code (torchrun's) and
+    that every rank launched K1 in exactly the plans' modes, and prints
+    each rank's wall before the reductions, its K1 launches and the
+    balance, max over mean rank wall.
 
 Every count of phases 3–4 sets K1's launch counters to 0 just before it
 and reads them just after; a kernel-path count must launch exactly the
@@ -143,15 +157,18 @@ composed runs and read just after; in phase 13 K1's, around each round
 of the engine, must show exactly the plan's modes; in phase 14 K1's,
 around each gateway run and each live count, must show exactly the
 modes of the plans run (none for a memoized count), and K4's, around
-each prefill and decode call, 28 per prefill and none in decode.
+each prefill and decode call, 28 per prefill and none in decode; in
+phase 15 K1's, around the one-rank counts and around each rank's serve
+(the launchers' own records), exactly the plans' modes in every rank.
 
-Counts are integers and every comparison of phases 2–6 and 10–14 is
+Counts are integers and every comparison of phases 2–6 and 10–15 is
 exact (no tolerance).  The last two lines are the kernels record (K1's
 three modes and its gathered-window entry, K2 and K3 with the first
 version's time as `linear_ms`, K4 with its kernel `variant` and
 `tflops`; `front_door_launches`: K1's launches per mode in phase 14's
-cold serve and K4's per prefill of its graph + LM run) and the device
-record (JSON).
+cold serve and K4's per prefill of its graph + LM run;
+`sharded_launches`: K1's launches per rank in phase 15's query_serve
+runs) and the device record (JSON).
 """
 from __future__ import annotations
 
@@ -1355,8 +1372,11 @@ def graph_phases(card) -> list:
               f"{path} triangles {stats.tri_cnt} != {WIKI_TRIANGLES}")
     house = get_pattern("P1")
     # Whole P1 counts on the kernel path under every distinct plan of
-    # the graphpi, graphzero and naive (÷ |Aut|) modes, enum and IEP
-    # (graphpi folds no tail here, so its IEP plan is its enum plan).
+    # the graphpi mode, enum and IEP (graphpi folds no tail here, so its
+    # IEP plan is its enum plan), the graphzero IEP plan and the naive
+    # plan (÷ |Aut|).  The graphzero enum plan (~45 s here; its inner
+    # levels are its IEP plan's) is counted on small-rmat below only, so
+    # the script keeps to half its time limit with phase 15.
     # The graphpi count is the named run whose mask and count launches
     # the kernels line reports, the graphzero IEP count the one for
     # signed; phase 6 times the largest launch of each.
@@ -1364,8 +1384,7 @@ def graph_phases(card) -> list:
              ("graphzero", True): ("signed",)}
     main_launches, recorders, plans = {}, [], set()
     for mode, iep in (("graphpi", False), ("graphpi", True),
-                      ("graphzero", True), ("naive", False),
-                      ("graphzero", False)):
+                      ("graphzero", True), ("naive", False)):
         config, plan = plan_for(house, stats, mode=mode, use_iep=iep)
         if repr(plan) in plans:
             log(f"phase 4: P1 {mode}{' iep' if iep else ''}: same plan as "
@@ -1419,6 +1438,7 @@ def graph_phases(card) -> list:
              for path in ("kernel", "portable")}
     sstats, _, _ = stats_on("small-rmat compute_stats kernel", small,
                             scfgs["kernel"], sarrays)
+    RESULTS["small-rmat triangles"] = sstats.tri_cnt
     p1, plans = {}, set()
     for mode in ("graphpi", "graphzero", "naive"):
         for iep in (False, True):
@@ -2738,6 +2758,265 @@ def front_door_phase(card) -> dict:
     return out_launches
 
 
+# ------------------------------------------------------------ phase 15 --
+SHARD_DATASET = "wiki-vote-syn"
+SHARD_CAPACITY = 1 << 20
+# Stripe chunks of the whole-P1 checks, from `shard_reckoning`.  The
+# sharded matcher does not bisect: a chunk's frontier must fit the
+# capacity (doubled by whole passes up to 2^28), and every chunk pays
+# bookkeeping of the capacity's size (~38 ms at 2^26, ~75 at 2^27 on the
+# card).  On wiki-vote-syn under the launchers' layout (no buckets)
+# single roots need up to 1.6e6 rows and roots 0-511 hold most of P1, so
+# at W = 2 a chunk of 64 roots (rank 0's first: 0, 2, ..., 126) needs at
+# most 5.4e7 rows (2^26), and at W = 4 a chunk of 128 at most 6.7e7.
+SHARD_P1_CHUNK = {2: 64, 3: 128, 4: 128}
+SHARD_TIMEOUT_S = 300
+RANK_LINE = (r"rank (\d+): wall=([\d.]+)s passes=(\d+) K1 launches "
+             r"mask=(\d+) count=(\d+) signed=(\d+)")
+
+
+def torchrun(what, world, module, argv, want, modes, backend):
+    """One `torchrun --standalone --nproc-per-node world -m module argv`
+    on the card, its processes in a session of their own (killed whole
+    past SHARD_TIMEOUT_S).  Every rank must exit 0 (torchrun's code), the
+    group's backend must be `backend`, the counts rank 0 prints `want`,
+    and every rank must have launched K1 in exactly `modes`.  Returns
+    the per-rank records (wall, passes, launches) and the run's wall."""
+    import re
+    import signal
+    import subprocess
+
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(world), "-m", module, *argv]
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS="1")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=SHARD_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, _ = proc.communicate()
+        log(out[-4000:])
+        check(False, f"{what}: no end in {SHARD_TIMEOUT_S}s")
+    wall = time.perf_counter() - t0
+    lines = [ln for ln in out.splitlines()
+             if ln.startswith(("[mine]", "[serve]", "[group]"))]
+    for ln in lines:
+        log(f"phase 15: {what}: {ln}")
+    if proc.returncode != 0:
+        log(out[-4000:])
+    check(proc.returncode == 0, f"{what}: torchrun exited {proc.returncode}")
+    m = re.search(r"\[group\] world=(\d+) backend=(\w+)", out)
+    check(m is not None and (int(m.group(1)), m.group(2)) == (world, backend),
+          f"{what}: group {m and m.groups()}, want {world} ranks on "
+          f"{backend}")
+    counts = [int(c) for c in re.findall(r"(?:\[mine\]|\]\s+\S+)\s+"
+                                         r"count=(\d+)", out)]
+    check(counts == want, f"{what}: counts {counts} != {want}")
+    check("OVERFLOWED" not in out, f"{what}: a count overflowed")
+    ranks = [dict(rank=int(r), wall=float(w), passes=int(p),
+                  launches=dict(mask=int(a), count=int(b), signed=int(c)))
+             for r, w, p, a, b, c in re.findall(RANK_LINE, out)]
+    check([r["rank"] for r in ranks] == list(range(world)),
+          f"{what}: rank lines {ranks}")
+    for r in ranks:
+        got = {k for k, v in r["launches"].items() if v}
+        check(got == modes, f"{what}: rank {r['rank']} launched K1 in "
+              f"{r['launches']}, but the plans need {sorted(modes)}")
+    return ranks, wall
+
+
+def shard_reckoning(card, roots=512, worlds=(2, 4),
+                    chunks=(8, 16, 32, 64, 128, 256),
+                    capacities=(20, 24, 26, 27, 28)) -> dict:
+    """The reckoning behind `SHARD_P1_CHUNK` (not part of `main()`):
+    P1's frontier demand (`needed`) and wall for each single root
+    v0 < `roots` on wiki-vote-syn under the launchers' layout (no
+    buckets, the kernel path) at capacity 2^28; from them an upper bound
+    of each stripe chunk's demand (the sum of its roots') for rank d's
+    first chunks at each world size and chunk; and the time of one
+    all-sentinel chunk at each capacity (the per-chunk bookkeeping a
+    sharded pass pays whatever its roots)."""
+    import math
+
+    import torch
+
+    from repro_torch.configs.graphpi import get_dataset, get_pattern
+    from repro_torch.core.executor import (ExecutorConfig, Matcher,
+                                           compute_stats)
+    from repro_torch.query.cache import plan_for
+
+    wiki = get_dataset(SHARD_DATASET)
+    stats = compute_stats(wiki, ExecutorConfig(capacity=SHARD_CAPACITY),
+                          device="cuda")
+    _, plan = plan_for(get_pattern("P1"), stats, mode="graphpi")
+    cap = Matcher.MAX_CAPACITY
+    m = Matcher(wiki, plan, ExecutorConfig(capacity=cap), device="cuda")
+    fn, args = m._fn(cap), m._call_args()
+    torch.cuda.reset_peak_memory_stats()
+    needed, ms, raw = [], [], 0
+    for r in range(roots):
+        v0 = torch.tensor([r], dtype=torch.int32, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cnt, nd = fn(*args, v0)
+        needed.append(int(nd))
+        raw += int(cnt)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    log(f"shard reckoning: P1 single roots 0..{roots - 1} at capacity "
+        f"2^{cap.bit_length() - 1}: needed max {max(needed):,} (root "
+        f"{needed.index(max(needed))}), raw {raw:,} of {WIKI_P1:,}, "
+        f"{sum(ms) / 1e3:.2f}s; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {card}")
+    bounds = {}
+    for world in worlds:
+        for c in chunks:
+            worst = max((sum(needed[d + world * (k * c + j)]
+                             for j in range(c))
+                         for d in range(world) for k in range(4)
+                         if d + world * (k * c + c - 1) < roots),
+                        default=None)
+            if worst is None:
+                continue                   # a chunk past the roots counted
+            per = math.ceil(math.ceil(wiki.n / world) / c) * c
+            bounds[(world, c)] = worst
+            log(f"shard reckoning: W={world} chunk={c}: {per // c} chunks "
+                f"per rank, first chunks need at most {worst:,} rows "
+                f"(capacity 2^{max(20, (worst - 1).bit_length())})")
+    costs = {}
+    for k in capacities:
+        f = m._fn(1 << k)
+        v0 = torch.full((8,), wiki.n, dtype=torch.int32, device="cuda")
+        int(f(*args, v0)[1])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            int(f(*args, v0)[1])
+        costs[k] = (time.perf_counter() - t0) / 5 * 1e3
+        log(f"shard reckoning: an all-sentinel chunk at capacity 2^{k}: "
+            f"{costs[k]:.2f} ms on {card}")
+    return {"needed": needed, "ms": ms, "bounds": bounds, "costs": costs}
+
+
+def shard_serve(world, backend, card) -> list:
+    """Phase 15's launcher runs at one world size: `launch.mine` on the
+    triangle, then `launch.query_serve` on the triangle, P1 and an
+    isomorphic P1 (coalesced with it), whole wiki-vote-syn from capacity
+    2^20 at the stripe chunk `SHARD_P1_CHUNK`; returns K1's launches per
+    rank in the serve."""
+    import tempfile
+
+    base = ["--dataset", SHARD_DATASET, "--capacity", str(SHARD_CAPACITY)]
+    tag = f"W={world} {backend}"
+    _, wall = torchrun(f"mine triangle {tag}", world,
+                       "repro_torch.launch.mine",
+                       ["--pattern", "triangle", *base], [WIKI_TRIANGLES],
+                       {"count"}, backend)
+    log(f"phase 15: mine triangle {tag}: {wall:.1f}s in all (process start "
+        f"included) on {card}")
+    with tempfile.NamedTemporaryFile("w", suffix=".jsonl",
+                                     delete=False) as f:
+        f.write('{"pattern": "triangle"}\n{"pattern": "P1"}\n'
+                '{"pattern": {"n": 5, "edges": [[0, 1], [1, 2], [2, 3], '
+                '[3, 0], [4, 0], [4, 1]], "name": "house-b"}}\n')
+    try:
+        ranks, wall = torchrun(
+            f"query_serve triangle + P1 {tag}", world,
+            "repro_torch.launch.query_serve",
+            [*base, "--requests", f.name, "--round-quantum", "3",
+             "--chunk", str(SHARD_P1_CHUNK[world]), "--expect-min-hits", "1"],
+            [WIKI_TRIANGLES, WIKI_P1, WIKI_P1], {"count", "mask"}, backend)
+    finally:
+        os.unlink(f.name)
+    walls = [r["wall"] for r in ranks]
+    log(f"phase 15: query_serve {tag}: {wall:.1f}s in all; rank walls "
+        f"{walls}, balance max/mean {max(walls) / (sum(walls) / world):.3f}; "
+        f"K1 launches per rank {[r['launches'] for r in ranks]} on {card}")
+    return [r["launches"] for r in ranks]
+
+
+def sharded_phase(card) -> dict:
+    """Phase 15: multi-GPU counting.  (a) One rank under NCCL through
+    `count_embeddings_sharded` on small-rmat; (b) `torchrun` with 2 and
+    4 ranks sharing the card under gloo, through `launch.mine` and
+    `launch.query_serve` on wiki-vote-syn at capacity 2^20: the
+    triangles at both world sizes, whole P1 at both; (c) NCCL across
+    min(cards, 4) cards where there is more than one.  Counts equal
+    phase 4's single-device values; every rank launches K1 in exactly
+    the plans' modes.  Returns K1's launches per rank and mode."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs.graphpi import get_dataset, get_pattern
+    from repro_torch.core.executor import (ExecutorConfig,
+                                           count_embeddings_sharded,
+                                           triangle_plan)
+    from repro_torch.core.perf_model import GraphStats
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import close_group, init_group
+    from repro_torch.query.cache import plan_for
+
+    t_phase = time.perf_counter()
+    cards = torch.cuda.device_count()
+    launches: dict = {}
+
+    # ---- (a) one rank, NCCL, in this process
+    small = get_dataset("small-rmat")
+    tri = RESULTS["small-rmat triangles"]
+    stats = GraphStats(n_vertices=small.n, n_edges=small.m, tri_cnt=tri)
+    _, p1_plan = plan_for(get_pattern("P1"), stats, mode="graphpi")
+    with tempfile.TemporaryDirectory() as d:
+        group, dev = init_group("cuda", rank=0, world_size=1, local_world=1,
+                                init_method=f"file://{d}/rdv", timeout=120,
+                                log=lambda ln: log(f"phase 15: {ln}"))
+        try:
+            check(dist.get_backend(group) == "nccl",
+                  f"one rank on its card: backend {dist.get_backend(group)}")
+            for name, plan, want in (
+                    ("triangle", triangle_plan(), tri),
+                    ("P1", p1_plan, RESULTS["small-rmat P1"])):
+                what = f"small-rmat {name} sharded, W=1, nccl"
+                torch.cuda.synchronize()
+                ops.reset_launches()
+                t0 = time.perf_counter()
+                res = count_embeddings_sharded(
+                    small, plan, group, cfg=ExecutorConfig(), device=dev)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                got = dict(ops.launches)
+                check_launches(what, got, plan, True)
+                check_compact(what, got)
+                check(res.count == want and not res.overflowed,
+                      f"{what}: {res} != {want}")
+                log(f"phase 15: {what}: count={res.count} "
+                    f"max_needed={res.max_needed} wall={wall:.3f}s "
+                    f"K1 launches={ {k: got[k] for k in ops.K1_MODES} } "
+                    f"on {card}")
+        finally:
+            close_group()
+
+    # ---- (b) ranks sharing the card: gloo (NCCL refuses two ranks on
+    # one device), through the launchers
+    for world in (2, 4):
+        launches[f"W{world} triangle + P1"] = shard_serve(
+            world, "gloo" if world > cards else "nccl", card)
+
+    # ---- (c) a card per rank, where the machine has more than one
+    if cards > 1:
+        world = min(cards, 4)
+        launches[f"W{world} nccl triangle + P1"] = shard_serve(
+            world, "nccl", card)
+    else:
+        log("phase 15: one card: no NCCL run across cards")
+    log(f"phase 15: sharded checks in {time.perf_counter() - t_phase:.1f}s")
+    return launches
+
+
 def ptxas_summary(log_text: str) -> list:
     """(kernel, registers, spill store bytes, spill load bytes) for each
     entry function of an `nvcc -Xptxas -v` log; names demangled by
@@ -2825,6 +3104,12 @@ def main() -> int:
     front = front_door_phase(card)
     for k in kernels:
         k["front_door_launches"] = front.get(k["name"])
+    sharded = sharded_phase(card)
+    for k in kernels:
+        mode = k["name"].removeprefix("level_expand.")
+        if mode in ("mask", "count", "signed"):
+            k["sharded_launches"] = {run: [r[mode] for r in ranks]
+                                     for run, ranks in sharded.items()}
     log(f"done in {time.perf_counter() - t_all:.1f}s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

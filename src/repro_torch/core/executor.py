@@ -1,7 +1,8 @@
-"""PyTorch vectorized pattern-matching executor (single device).
+"""PyTorch vectorized pattern-matching executor (one device, or one
+process per GPU with `ShardedMatcher`).
 
-Port of the reference's `repro/core/executor.py:1-866, 1042-1058`:
-GraphPi's nested-loop DFS as level-synchronous frontier expansion.
+Port of the reference's `repro/core/executor.py`: GraphPi's nested-loop
+DFS as level-synchronous frontier expansion.
 
  * a dense [capacity, depth] matrix of partial embeddings is expanded
    one schedule position at a time;
@@ -36,15 +37,23 @@ memory follow the frontier rather than the capacity.  That makes a large
 capacity cheap, and the escalation ceiling is correspondingly higher
 (`Matcher.MAX_CAPACITY`).  Counts, `needed` and the overflow logic are
 the reference's; counts are int64 tensors, no x64 switch is needed.
+`ShardedMatcher` keeps the reference's striped layout and whole-pass
+doubling; its `needed` stays int64 (the reference's int32 would wrap
+below the port's higher ceiling).
 """
 from __future__ import annotations
 
+import hashlib
+import json
+import math
+import time
 from dataclasses import dataclass, replace
 from functools import partial
 from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..device import resolve_device
 from ..graph.csr import GraphCSR
@@ -56,7 +65,7 @@ from ..kernels.ref import segment_member as _segment_member
 from ..obs import get_tracer
 from .pattern import clique
 from .perf_model import GraphStats
-from .plan import MatchingPlan, build_plan
+from .plan import MatchingPlan, build_plan, plan_to_dict
 from .restrictions import generate_restriction_sets
 
 I32 = torch.int32
@@ -724,6 +733,202 @@ def count_embeddings(
 ) -> CountResult:
     """One-shot convenience wrapper around :class:`Matcher`."""
     return Matcher(graph, plan, cfg, device=device).count(chunk=chunk)
+
+
+class ShardedMatcher:
+    """Reusable multi-GPU matcher: one process per GPU, count many times.
+
+    The reference's `ShardedMatcher` (`repro/core/executor.py:869-1024`)
+    for SPMD ranks under `torch.distributed`.  Rank d of W takes the
+    outer-loop roots v0 ∈ {d, d+W, 2W+d, ...} (fine-grained striping:
+    with the datasets' degree-descending relabeling it spreads the
+    power-law head over the ranks), scans its stripe in fixed-size
+    chunks through the single-device count function — K1 on the rank's
+    card — with the int64 total and the frontier demand kept on the
+    device, and reduces both once per pass (one all_reduce SUM, one
+    MAX).  If any chunk of any rank overflowed capacity, every rank
+    reruns the whole pass at a doubled capacity (the straggler-free
+    analogue of the single-device bisection); the escalated capacity is
+    sticky, so a repeat count is one pass.
+
+    A mesh runs one program on all its devices; ranks are not bound to.
+    So the constructor all-gathers a digest of the plan, the graph
+    fingerprint, the executor facets and the stripe layout, and raises
+    on every rank if any rank differs: a rank counting another plan
+    would make the sum wrong without a sign.  Construction, `warmup` and
+    `count` are collectives: every rank of `group` calls them in the
+    same order.
+    """
+
+    def __init__(self, graph: GraphCSR, plan: MatchingPlan, group, *,
+                 cfg: ExecutorConfig | None = None, chunk: int | None = None,
+                 arrays=None, device="cuda"):
+        self.graph = graph
+        self.plan = plan
+        self.group = group
+        self.cfg = cfg or ExecutorConfig()
+        self.device = resolve_device(device)
+        self.rank = dist.get_rank(group)
+        self.world = dist.get_world_size(group)
+        self._W = max(graph.max_degree, 1)
+        if arrays is None:
+            arrays = device_graph(graph, self.device)
+        if arrays.indptr.device != self.device:
+            raise ValueError(f"arrays on {arrays.indptr.device}, matcher "
+                             f"on {self.device}")
+        self._arrays = arrays
+        if plan.vlabels is not None and arrays.labs is None:
+            raise ValueError(
+                f"labeled pattern {plan.pattern.name!r} cannot run against "
+                f"unlabeled graph {graph.name!r}")
+        self.chunk = chunk or max(64, self.cfg.capacity // 16)
+        per = math.ceil(graph.n / self.world)
+        per = math.ceil(per / self.chunk) * self.chunk  # chunk multiple
+        self._per = per
+        # column-major: rank d owns d, d+W, 2W+d, ... (sentinel roots n)
+        v0 = np.full(self.world * per, graph.n, dtype=np.int32)
+        v0[: graph.n] = np.arange(graph.n, dtype=np.int32)
+        stripe = v0.reshape(per, self.world).T[self.rank]
+        self._v0 = torch.as_tensor(np.ascontiguousarray(stripe),
+                                   device=self.device)
+        self._fns: dict[int, object] = {}     # capacity -> count fn
+        self._capacity = self.cfg.capacity    # sticky escalated capacity
+        self.passes = 0                       # count passes so far
+        self.local_seconds = 0.0              # this rank's seconds in them
+        self._check_same_program()
+
+    def _check_same_program(self) -> None:
+        h = hashlib.sha256(json.dumps(plan_to_dict(self.plan),
+                                      sort_keys=True).encode())
+        for part in (self.graph.fingerprint, self.cfg.fingerprint(),
+                     f"n={self.graph.n},chunk={self.chunk},per={self._per}"):
+            h.update(b"\0" + part.encode())
+        digests = [None] * self.world
+        dist.all_gather_object(digests, h.hexdigest(), group=self.group)
+        differ = [r for r, d in enumerate(digests) if d != digests[0]]
+        if differ:
+            raise RuntimeError(
+                f"ranks {differ} hold another plan, graph, executor "
+                f"config or stripe layout than rank 0: a sharded count "
+                f"needs one program on every rank")
+
+    def _fn(self, capacity: int):
+        if capacity not in self._fns:
+            self._fns[capacity] = _make_count_fn(
+                self.plan, self._W, _bs_iters(self._W),
+                replace(self.cfg, capacity=capacity), device=self.device)
+        return self._fns[capacity]
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _pass(self, capacity: int, v0: torch.Tensor):
+        """This rank's chunks at `capacity`, then the reduction over the
+        ranks: (raw total, max needed) as 0-d int64 tensors, and this
+        rank's seconds before the reduction (its share of the pass: the
+        ranks' spread of it is the stripes' balance)."""
+        fn = self._fn(capacity)
+        a = self._arrays
+        tot = torch.zeros((), dtype=I64, device=self.device)
+        mx = torch.zeros((), dtype=I64, device=self.device)
+        t0 = time.perf_counter()
+        for c0 in range(0, self._per, self.chunk):
+            cnt, needed = fn(a.indptr, a.degrees, a.flat, a.labs,
+                             v0[c0:c0 + self.chunk])
+            tot += cnt
+            mx = torch.maximum(mx, needed)
+        self._sync()
+        local = time.perf_counter() - t0
+        dist.all_reduce(tot, op=dist.ReduceOp.SUM, group=self.group)
+        dist.all_reduce(mx, op=dist.ReduceOp.MAX, group=self.group)
+        return tot, mx, local
+
+    def warmup(self) -> None:
+        """Build the kernel and run one pass over an all-sentinel stripe
+        (no live rows, so nothing is counted), collectives included."""
+        if self._arrays is None:
+            raise RuntimeError("matcher was released (evicted from cache)")
+        if self.cfg.use_kernel:
+            ops.prepare(self.device)
+        _, needed, _ = self._pass(self.cfg.capacity,
+                                  torch.full_like(self._v0, self.graph.n))
+        int(needed)
+
+    def release(self) -> None:
+        """Drop every count function and device-tensor reference,
+        the stripe this matcher owns included.  The matcher is unusable
+        afterwards."""
+        self._fns.clear()
+        self._arrays = None
+        self._v0 = None
+
+    def rebind(self, arrays, *, graph=None) -> None:
+        """As :meth:`Matcher.rebind`: the stripe depends only on `n`,
+        which an overlay epoch keeps, so the count functions replay
+        as they are."""
+        if self._arrays is None:
+            raise RuntimeError("matcher was released (evicted from cache)")
+        arrays = DeviceGraph(*arrays)
+        old, new = _leaves(self._arrays), _leaves(arrays)
+        if (len(old) != len(new)
+                or any(tuple(a.shape) != tuple(b.shape) or a.dtype != b.dtype
+                       or a.device != b.device
+                       for a, b in zip(old, new))):
+            raise ValueError(
+                "rebind needs identical array shapes/dtypes; the graph "
+                "outgrew its fixed layout — rebuild the matcher")
+        if graph is not None:
+            if max(graph.max_degree, 1) != self._W:
+                raise ValueError(
+                    f"rebind window {max(graph.max_degree, 1)} != compiled "
+                    f"window {self._W}")
+            if graph.n != self.graph.n:
+                raise ValueError(
+                    f"rebind vertex count {graph.n} != {self.graph.n}")
+            self.graph = graph
+        self._arrays = arrays
+
+    def count(self) -> CountResult:
+        if self._arrays is None:
+            raise RuntimeError("matcher was released (evicted from cache)")
+        tr = get_tracer()
+        # start from the last sufficient capacity, so a repeat skips the
+        # undersized passes
+        capacity = self._capacity
+        with tr.span("executor.count", depth=self.plan.depth,
+                     sharded=True, chunk=self.chunk) as csp:
+            while True:
+                with tr.span("executor.dispatch", capacity=capacity,
+                             frontier=self.world * self._per) as dsp:
+                    cnt, needed, local = self._pass(capacity, self._v0)
+                    needed = int(needed)
+                    dsp.set(needed=needed, local_seconds=local)
+                self.passes += 1
+                self.local_seconds += local
+                if needed <= capacity or capacity >= Matcher.MAX_CAPACITY:
+                    break
+                while capacity < min(needed, Matcher.MAX_CAPACITY):
+                    capacity *= 2
+            csp.set(max_needed=needed, capacity=capacity)
+        self._capacity = capacity
+        return CountResult(count=int(cnt) // self.plan.iep_divisor,
+                           overflowed=needed > capacity, max_needed=needed)
+
+
+def count_embeddings_sharded(
+    graph: GraphCSR,
+    plan: MatchingPlan,
+    group,
+    *,
+    cfg: ExecutorConfig | None = None,
+    chunk: int | None = None,
+    device="cuda",
+) -> CountResult:
+    """One-shot convenience wrapper around :class:`ShardedMatcher` (a
+    collective: every rank of `group` calls it)."""
+    return ShardedMatcher(graph, plan, group, cfg=cfg, chunk=chunk,
+                          device=device).count()
 
 
 # --------------------------------------------------------------------------

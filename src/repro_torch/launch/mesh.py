@@ -1,0 +1,165 @@
+"""Process groups for multi-GPU counting: one process per GPU.
+
+Port of `repro/launch/mesh.py`.  The reference builds a JAX mesh over
+the devices one controller sees; the port runs one process per GPU
+under `torch.distributed` — SPMD ranks that run the same program, as
+the hosts of a multi-host JAX mesh do.  `init_group` reads torchrun's
+environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
+``LOCAL_WORLD_SIZE``, ``MASTER_ADDR`` / ``MASTER_PORT``); tests pass
+the rank, the world size and a ``file://`` rendezvous instead.
+
+The backend follows one static rule (`backend_rule`), printed by
+`init_group`: NCCL when every rank of the node has a card of its own,
+gloo when ranks share a card (NCCL refuses two ranks on one device) or
+run on the CPU.  Gloo reduces CUDA tensors by staging them through the
+host; the sharded matcher reduces two scalars per pass, so that copy is
+negligible.
+
+Functions only: importing this module initializes no group.
+"""
+from __future__ import annotations
+
+import datetime
+import os
+
+import torch
+import torch.distributed as dist
+
+# Seconds a collective waits for its peers before it raises.  NCCL's
+# default is ten minutes, so a rank that dies before a collective would
+# hang the others that long.  The wait also covers the imbalance of a
+# pass (the fastest rank waits for the slowest in the reduction).
+GROUP_TIMEOUT_S = 300.0
+
+
+def backend_rule(device_type: str, local_world: int,
+                 cards: int) -> tuple[str, str]:
+    """(backend, reason) for `local_world` ranks on one node with
+    `cards` visible cards."""
+    if device_type == "cpu":
+        return "gloo", "ranks on the CPU"
+    if local_world <= cards:
+        return "nccl", (f"{local_world} local rank(s) on {cards} card(s): "
+                        "a card each")
+    return "gloo", f"{local_world} local ranks share {cards} card(s)"
+
+
+def _env_int(name: str, default: int) -> int:
+    return int(os.environ.get(name, default))
+
+
+def launched_sharded(single_device: bool = False) -> bool:
+    """Whether a launcher counts sharded: started with more than one rank
+    (torchrun's ``WORLD_SIZE``) and not told `--single-device`."""
+    return not single_device and _env_int("WORLD_SIZE", 1) > 1
+
+
+def init_group(device="cuda", *, timeout: float = GROUP_TIMEOUT_S,
+               rank: int | None = None, world_size: int | None = None,
+               local_rank: int | None = None,
+               local_world: int | None = None,
+               init_method: str | None = None, log=print):
+    """Initialize the default process group; returns ``(group, device)``
+    with the rank's device ``cuda:{LOCAL_RANK % device_count}`` (made
+    the current card) or the CPU when `device` names it.  Unset
+    arguments come from torchrun's environment (rank 0 of 1 without
+    it).  Rank 0 logs the backend and the rule that chose it."""
+    if dist.is_initialized():
+        raise RuntimeError("a torch.distributed process group is already "
+                           "initialized in this process")
+    rank = _env_int("RANK", 0) if rank is None else rank
+    world_size = (_env_int("WORLD_SIZE", 1) if world_size is None
+                  else world_size)
+    local_rank = (_env_int("LOCAL_RANK", rank) if local_rank is None
+                  else local_rank)
+    local_world = (_env_int("LOCAL_WORLD_SIZE", world_size)
+                   if local_world is None else local_world)
+    kind = torch.device(device).type
+    if kind == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "CUDA device requested but torch.cuda.is_available() is "
+                "False; pass device='cpu' to run the ranks on the CPU")
+        cards = torch.cuda.device_count()
+        dev = torch.device("cuda", local_rank % cards)
+        torch.cuda.set_device(dev)
+    elif kind == "cpu":
+        cards, dev = 0, torch.device("cpu")
+    else:
+        raise ValueError(f"unsupported device {device!r} (cuda or cpu)")
+    backend, why = backend_rule(kind, local_world, cards)
+    dist.init_process_group(
+        backend, init_method=init_method or "env://", rank=rank,
+        world_size=world_size,
+        timeout=datetime.timedelta(seconds=timeout))
+    if rank == 0 and log is not None:
+        log(f"[group] world={world_size} backend={backend} ({why}); "
+            f"timeout {timeout:g}s")
+    return dist.group.WORLD, dev
+
+
+_SHARED: dict[str, tuple] = {}
+
+
+def shared_group(device="cuda", **kw):
+    """The process-wide ``(group, device)`` every sharded tenant of the
+    process uses — the counterpart of the reference's
+    `shared_host_mesh`.  The first call initializes it (`init_group`,
+    same keywords); later calls return it."""
+    if "world" not in _SHARED:
+        _SHARED["world"] = init_group(device, **kw)
+    return _SHARED["world"]
+
+
+def close_group() -> None:
+    """Destroy the process-wide group (a collective) and forget it."""
+    _SHARED.clear()
+    _DEVICES.clear()
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def gather(group, obj) -> list:
+    """`obj` from every rank, in rank order (a collective)."""
+    out = [None] * dist.get_world_size(group)
+    dist.all_gather_object(out, obj, group=group)
+    return out
+
+
+_DEVICES: dict = {}
+
+
+def group_devices(group, device) -> tuple:
+    """Every rank's device string, in rank order; gathered once per
+    group (a collective on the first call), so every rank builds the
+    same cache key."""
+    if group not in _DEVICES:
+        _DEVICES[group] = tuple(gather(group, str(torch.device(device))))
+    return _DEVICES[group]
+
+
+def rank_lines(group, prefix: str, *, wall: float, passes: int,
+               launches: dict) -> tuple[list, list]:
+    """Gather every rank's counting wall (its seconds before each
+    reduction), passes and K1 launches (a collective); returns them in
+    rank order with the lines rank 0 prints: one per rank, then the
+    balance, max over mean rank wall (the quantity of the paper's
+    Fig. 12)."""
+    ranks = gather(group, {"wall": wall, "passes": passes,
+                           "launches": launches})
+    lines = [f"{prefix} rank {r}: wall={st['wall']:.3f}s "
+             f"passes={st['passes']} K1 launches "
+             + " ".join(f"{k}={v}" for k, v in st["launches"].items())
+             for r, st in enumerate(ranks)]
+    walls = [st["wall"] for st in ranks]
+    mean = sum(walls) / len(walls)
+    lines.append(f"{prefix} balance: max/mean rank wall = "
+                 f"{max(walls) / mean if mean > 0 else 1.0:.3f} over "
+                 f"{len(walls)} ranks")
+    return ranks, lines
+
+
+def agreed_exit(group, rc: int) -> int:
+    """The largest exit code over the ranks, so every rank of a launch
+    exits with the same code (a collective)."""
+    return max(gather(group, int(rc)))

@@ -1,8 +1,10 @@
-"""End-to-end pattern-counting driver on one device (the paper's workload).
+"""End-to-end pattern-counting driver (the paper's workload).
 
     PYTHONPATH=src python -m repro_torch.launch.mine --pattern P1 --dataset tiny-er --verify
     PYTHONPATH=src python -m repro_torch.launch.mine --pattern P2 --dataset small-rmat \
         --use-iep --verify --device cpu
+    PYTHONPATH=src torchrun --standalone --nproc-per-node 4 \
+        -m repro_torch.launch.mine --pattern P1 --dataset wiki-vote-syn
 
 Pipeline (paper Fig. 3): the graph is uploaded once and its triangle
 count bootstraps the performance model; restriction generation (Alg. 1)
@@ -14,12 +16,17 @@ set, degree-heuristic schedule); `--mode naive` drops the restrictions
 and divides by |Aut|.
 
 As in the reference (`repro/launch/mine.py`), this CLI is a one-request
-client of the `PlanCache` / `QueryEngine` request path.  The plan store
-(`--cache-dir`) arrives with its own slice.
+client of the `PlanCache` / `QueryEngine` request path.  Under torchrun
+(world size > 1) the count is sharded over the ranks, one process per
+GPU (`ShardedMatcher`; `launch/mesh.py` picks the backend), unless
+`--single-device` is passed; rank 0 alone prints, with one line per
+rank (its wall before the reduction and its K1 launches) and the
+balance, max over mean rank wall; every rank exits with the same code.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 from dataclasses import dataclass
 
@@ -39,6 +46,8 @@ class MineResult:
     metrics: object           # MetricsRegistry (the --metrics snapshot)
     expected: int | None = None
     verified: bool | None = None
+    group: object = None      # the process group of a sharded run
+    ranks: list | None = None  # per rank: wall (s), passes, K1 launches
 
 
 def parse_args(argv=None):
@@ -55,6 +64,9 @@ def parse_args(argv=None):
     ap.add_argument("--capacity", type=int, default=1 << 15)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
+    ap.add_argument("--single-device", action="store_true",
+                    help="count on this process's device even under "
+                         "torchrun")
     add_trace_args(ap)
     return ap.parse_args(argv)
 
@@ -74,8 +86,13 @@ def run(args, *, log=print) -> MineResult:
         f"|Aut|={pattern.aut_count()})  graph={graph.name} "
         f"(|V|={graph.n}, |E|={graph.m}, max_deg={graph.max_degree})")
 
+    from .mesh import launched_sharded, shared_group
+
+    group, device = None, args.device
+    if launched_sharded(args.single_device):
+        group, device = shared_group(args.device, log=log)
     engine = QueryEngine(graph, cfg=ExecutorConfig(capacity=args.capacity),
-                         device=args.device)
+                         device=device, group=group)
     log(f"[mine] stats: tri_cnt={engine.stats.tri_cnt} "
         f"({engine.stats_seconds:.2f}s)")
 
@@ -97,6 +114,15 @@ def run(args, *, log=print) -> MineResult:
         f"(query latency {res.latency_s:.3f}s incl. search+compile; "
         f"dispatches: {dispatches}; max frontier rows used: "
         f"{res.max_needed}{', OVERFLOWED' if res.overflowed else ''})")
+    ranks = None
+    if group is not None:
+        from .mesh import rank_lines
+
+        ranks, lines = rank_lines(
+            group, "[mine]", wall=entry.matcher.local_seconds,
+            passes=entry.matcher.passes, launches=launches)
+        for line in lines:
+            log(line)
 
     metrics = engine.metrics
     metrics.counter("executor.dispatches").inc(dispatches)
@@ -115,7 +141,7 @@ def run(args, *, log=print) -> MineResult:
         search_seconds=res.search_seconds,
         compile_seconds=res.compile_seconds, wall_seconds=exec_s,
         launches=launches, metrics=metrics, expected=res.expected,
-        verified=res.verified)
+        verified=res.verified, group=group, ranks=ranks)
 
 
 def main(argv=None) -> int:
@@ -123,11 +149,16 @@ def main(argv=None) -> int:
 
     args = parse_args(argv)
     start_tracing(args)
-    res = run(args)
+    quiet = int(os.environ.get("RANK", "0")) != 0
+    res = run(args, log=(lambda line: None) if quiet else print)
     finish_tracing(args, registry=res.metrics, tag="mine")
-    if args.verify and not res.verified:
-        return 1
-    return 0
+    rc = 1 if args.verify and not res.verified else 0
+    if res.group is not None:
+        from .mesh import agreed_exit, close_group
+
+        rc = agreed_exit(res.group, rc)
+        close_group()
+    return rc
 
 
 if __name__ == "__main__":

@@ -1,13 +1,21 @@
-"""Pattern-query serving driver on one device.
+"""Pattern-query serving driver.
 
     PYTHONPATH=src python -m repro_torch.launch.query_serve --dataset tiny-er
     PYTHONPATH=src python -m repro_torch.launch.query_serve --dataset tiny-er \
         --workload mixed --verify --expect-min-hits 3 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.query_serve \
         --dataset small-rmat --requests reqs.jsonl
+    PYTHONPATH=src torchrun --standalone --nproc-per-node 2 \
+        -m repro_torch.launch.query_serve --dataset wiki-vote-syn --chunk 64
 
 Port of `repro/launch/query_serve.py`: `--device` (default cuda, which
-raises without a card) replaces `--model-axis` / `--single-device`.
+raises without a card) names this process's device; `--model-axis`
+belongs to the LM stack and is not ported.  Under torchrun (world size
+> 1) every count is sharded over the ranks (`ShardedMatcher`, striped
+in `--chunk` roots), unless `--single-device` is passed: every rank
+reads the same request stream and serves it in the same rounds, rank 0
+alone prints (with one line per rank: its counting wall and K1
+launches, then the balance), and every rank exits with the same code.
 Loads the dataset ONCE into a `QueryEngine` (CSR resident on the
 device) and streams a workload of pattern-count requests through the
 `PlanCache`.  Requests come from a JSON-lines file —
@@ -111,6 +119,9 @@ def main(argv=None):
                          "serving (requires --cache-dir)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
+    ap.add_argument("--single-device", action="store_true",
+                    help="serve on this process's device even under "
+                         "torchrun")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--expect-min-hits", type=int, default=-1,
                     help="fail unless the cache records >= this many hits")
@@ -125,9 +136,11 @@ def main(argv=None):
 
     from ..configs.graphpi import get_dataset, get_pattern
     from ..core.executor import ExecutorConfig
+    from ..kernels import ops
     from ..obs import MetricsRegistry
     from ..query import PlanCache, PlanStore, QueryEngine, canonical_key
     from ..serve.gateway import Gateway, GraphQueryWorkload, Share
+    from .mesh import launched_sharded, shared_group
 
     start_tracing(args)
 
@@ -135,6 +148,12 @@ def main(argv=None):
         print("[serve] --warm-from-disk requires --cache-dir")
         return 2
 
+    group, device, print_ = None, args.device, print
+    if launched_sharded(args.single_device):
+        group, device = shared_group(args.device)
+        if group.rank() != 0:
+            def print_(*a, **kw):
+                pass
     graph = get_dataset(args.dataset)
     store = PlanStore(args.cache_dir) if args.cache_dir else None
     # one registry shared by engine and gateway (one snapshot per run)
@@ -143,68 +162,85 @@ def main(argv=None):
         graph,
         cfg=ExecutorConfig(capacity=args.capacity),
         chunk=args.chunk or None,
-        device=args.device,
+        device=device,
+        group=group,
         cache=PlanCache(max_entries=args.max_entries or None, store=store),
         metrics=metrics,
     )
-    print(f"[serve] graph={graph.name} (|V|={graph.n}, |E|={graph.m}) "
-          f"resident on {engine.device}; "
-          f"stats in {engine.stats_seconds:.2f}s (tri_cnt="
-          f"{engine.stats.tri_cnt})")
+    where = (str(engine.device) if group is None else
+             f"{engine.summary()['devices']} ranks (rank 0 on "
+             f"{engine.device})")
+    print_(f"[serve] graph={graph.name} (|V|={graph.n}, |E|={graph.m}) "
+           f"resident on {where}; "
+           f"stats in {engine.stats_seconds:.2f}s (tri_cnt="
+           f"{engine.stats.tri_cnt})")
     if store is not None:
-        print(f"[serve] plan store at {store.vdir} ({len(store)} entries)")
+        print_(f"[serve] plan store at {store.vdir} ({len(store)} entries)")
     if args.warm_from_disk:
         n = engine.warm_from_disk()
-        print(f"[serve] warm-from-disk: {n} plan(s) preloaded "
-              f"({engine.cache.stats.n_compiles} matcher warmups)")
+        print_(f"[serve] warm-from-disk: {n} plan(s) preloaded "
+               f"({engine.cache.stats.n_compiles} matcher warmups)")
 
     requests = build_requests(args, get_pattern)
     distinct = len({canonical_key(r.pattern) for r in requests})
-    print(f"[serve] {len(requests)} requests "
-          f"({distinct} distinct isomorphism classes)")
+    print_(f"[serve] {len(requests)} requests "
+           f"({distinct} distinct isomorphism classes)")
 
     gw = Gateway(device=engine.device, metrics=metrics)
     workload = gw.add(GraphQueryWorkload(engine, requests),
                       Share(quantum=max(args.round_quantum, 1)))
+    before = dict(ops.launches)
     gw.run()
+    launches = {k: ops.launches[k] - before[k] for k in ops.K1_MODES}
     results = workload.results()
     for r in results:
-        print("[serve]", r.line())
+        print_("[serve]", r.line())
 
     s = engine.summary()
     lat, cache = s["latency"], s["cache"]
-    print(f"[serve] latency: n={lat['n']} p50={lat['p50_ms']:.1f}ms "
-          f"p99={lat['p99_ms']:.1f}ms mean={lat['mean_ms']:.1f}ms")
-    print(f"[serve] rounds: {gw.report()['rounds']} "
-          f"({s['requests_resolved']} requests, {s['executions']} "
-          f"executions, {s['coalesced']} coalesced)")
-    print(f"[serve] cache: {cache['hits']} hits / {cache['misses']} misses "
-          f"({s['cache_entries']} entries); {cache['n_searches']} config "
-          f"searches ({cache['search_seconds']:.3f}s), {cache['n_compiles']} "
-          f"compiles ({cache['compile_seconds']:.3f}s)")
+    print_(f"[serve] latency: n={lat['n']} p50={lat['p50_ms']:.1f}ms "
+           f"p99={lat['p99_ms']:.1f}ms mean={lat['mean_ms']:.1f}ms")
+    print_(f"[serve] rounds: {gw.report()['rounds']} "
+           f"({s['requests_resolved']} requests, {s['executions']} "
+           f"executions, {s['coalesced']} coalesced)")
+    print_(f"[serve] cache: {cache['hits']} hits / {cache['misses']} misses "
+           f"({s['cache_entries']} entries); {cache['n_searches']} config "
+           f"searches ({cache['search_seconds']:.3f}s), {cache['n_compiles']} "
+           f"compiles ({cache['compile_seconds']:.3f}s)")
     if "store" in s:
-        print(f"[serve] store: {cache['persist_hits']} persist hits, "
-              f"{cache['preloads']} preloads, "
-              f"{s['store']['saves']} saves, "
-              f"rejects={s['store']['rejects']}")
+        print_(f"[serve] store: {cache['persist_hits']} persist hits, "
+               f"{cache['preloads']} preloads, "
+               f"{s['store']['saves']} saves, "
+               f"rejects={s['store']['rejects']}")
 
     finish_tracing(args, registry=metrics, tag="serve")
 
     rc = 0
     bad = [r for r in results if r.verified is False]
     if bad:
-        print(f"[serve] VERIFY FAILED for {[r.pattern_name for r in bad]}")
+        print_(f"[serve] VERIFY FAILED for {[r.pattern_name for r in bad]}")
         rc = 1
     over = [r for r in results if r.overflowed]
     if over:
         # frontier exceeded MAX_CAPACITY: those counts are undercounts
-        print(f"[serve] OVERFLOWED (truncated counts) for "
-              f"{[r.pattern_name for r in over]}")
+        print_(f"[serve] OVERFLOWED (truncated counts) for "
+               f"{[r.pattern_name for r in over]}")
         rc = rc or 3
     if args.expect_min_hits >= 0 and cache["hits"] < args.expect_min_hits:
-        print(f"[serve] EXPECTED >= {args.expect_min_hits} cache hits, "
-              f"got {cache['hits']}")
+        print_(f"[serve] EXPECTED >= {args.expect_min_hits} cache hits, "
+               f"got {cache['hits']}")
         rc = rc or 2
+    if group is not None:
+        from .mesh import agreed_exit, close_group, rank_lines
+
+        matchers = [e.matcher for e in engine.cache.entries()]
+        _, lines = rank_lines(
+            group, "[serve]", wall=sum(m.local_seconds for m in matchers),
+            passes=sum(m.passes for m in matchers), launches=launches)
+        for line in lines:
+            print_(line)
+        rc = agreed_exit(group, rc)
+        close_group()
     return rc
 
 

@@ -1,8 +1,9 @@
 """Incremental count maintenance over a delta overlay.
 
 Port of `repro/live/maintain.py` over the port's `Matcher.count_partial`
-/ `CountState` / `CountResult`; the reference's sharded branch (memo or
-full recount for `ShardedMatcher`) waits for the multi-GPU slice.
+/ `CountState` / `CountResult`.  Sharded entries (`ShardedMatcher`, one
+collective pass over fixed stripes) take the reference's memo-or-full-
+recount branch: no spans, no budget.
 
 Pattern counts decompose over the engine's fixed root-vertex grid: the
 raw embedding total is a sum of per-span raws (the same spans
@@ -98,6 +99,22 @@ class CountMaintainer:
         incremental routing.  `key` is the engine's coalescing group key
         (canonical pattern class + mode) — one memo per group."""
         edge_key = self.live.edge_key
+        if entry.sharded:
+            memo = self._memos.get(key)
+            if memo is not None:
+                if memo.edge_key == edge_key:
+                    self.memo_hits += 1
+                    return None, memo.result
+                self.invalidations += 1
+                self.full_recounts += 1
+            st, out = entry.count_partial(state, chunk=chunk,
+                                          max_dispatches=max_dispatches)
+            if out is not None and not out.overflowed:
+                self._memos[key] = _Memo(edge_key=edge_key, chunk=None,
+                                         span_totals=None, result=out,
+                                         max_needed=out.max_needed)
+            return st, out
+
         matcher = entry.matcher
         cfg = matcher.cfg
         if state is None:

@@ -11,10 +11,16 @@ Cache key, as in the reference:
    graph fingerprint     — CSR content hash + (|V|, |E|, tri_cnt),
    executor fingerprint  — capacity, dynamic_base, kernel path, buckets,
    mode, use_iep,
-   layout fingerprint    — ("single", outer-loop chunk width))
+   layout fingerprint    — ("single", outer-loop chunk width), or
+                           ("sharded", "data", stripe chunk,
+                            (("data", W),), every rank's device))
 The canonical key and the graph fingerprint are byte-equal to the
 reference's; the executor fingerprint is `ExecutorConfig.fingerprint()`,
-whose `kernel=` facet stands where the reference has `pallas=`.
+whose `kernel=` facet stands where the reference has `pallas=`.  Given
+a `torch.distributed` group (``group=``, the counterpart of the
+reference's ``mesh=`` / ``axis=``), entries hold a `ShardedMatcher`
+striped over the group's ranks; every rank of the group must then make
+the same calls in the same order.
 Eviction beyond `max_entries` is LRU, and evicted matchers are
 `release()`d.
 
@@ -26,18 +32,22 @@ after warmup; `preload` (warm-from-disk) installs every compatible
 record before the first request (`preloads`).  The store holds no
 executables, so the reference's AOT counters (`aot_loads`,
 `aot_load_fails`, `export_fails`, `aot_load_seconds`) stay 0 and a
-snapshot keeps the reference's keys.  `ShardedMatcher` waits for the
-multi-GPU slice.
+snapshot keeps the reference's keys.  Under a group only rank 0 writes
+the store; every rank reads it.
 """
 from __future__ import annotations
 
 from collections import OrderedDict
 from dataclasses import dataclass, replace as dc_replace
 
+import torch.distributed as dist
+
 from ..core.config_search import (
     Configuration, graphzero_configuration, search_configuration,
 )
-from ..core.executor import CountResult, ExecutorConfig, Matcher
+from ..core.executor import (
+    CountResult, ExecutorConfig, Matcher, ShardedMatcher,
+)
 from ..core.pattern import Pattern
 from ..core.perf_model import GraphStats
 from ..core.plan import MatchingPlan, build_plan
@@ -58,12 +68,22 @@ def executor_fingerprint(cfg: ExecutorConfig) -> str:
     return cfg.fingerprint()
 
 
-def layout_fingerprint(chunk: int | None, cfg: ExecutorConfig) -> tuple:
-    """Execution-layout part of the cache key: the outer-loop chunk width
-    on one device, resolved as the matcher resolves it, so chunk=None and
-    an explicit default share one entry.  Equal to the reference's
-    `layout_fingerprint(None, axis, chunk, cfg)`."""
-    return ("single", min(chunk or cfg.capacity, cfg.capacity))
+def layout_fingerprint(chunk: int | None, cfg: ExecutorConfig, *,
+                       group=None, device="cuda") -> tuple:
+    """Execution-layout part of the cache key, shaped as the reference's
+    `layout_fingerprint(mesh, axis, chunk, cfg)`: on one device the
+    outer-loop chunk width; under `group` the stripe chunk, the group's
+    one data axis and every rank's device (all-gathered once, so every
+    rank builds the same key).  `chunk` is resolved as the matchers
+    resolve it, so chunk=None and an explicit default share one
+    entry."""
+    if group is None:
+        return ("single", min(chunk or cfg.capacity, cfg.capacity))
+    from ..launch.mesh import group_devices
+
+    return ("sharded", "data", int(chunk or max(64, cfg.capacity // 16)),
+            (("data", dist.get_world_size(group)),),
+            group_devices(group, device))
 
 
 def graph_fingerprint(graph: GraphCSR, stats: GraphStats) -> tuple:
@@ -97,7 +117,8 @@ class CacheEntry:
     pattern: Pattern            # canonical labeling
     config: Configuration
     plan: MatchingPlan
-    matcher: Matcher            # warmed
+    matcher: object             # warmed Matcher | ShardedMatcher
+    sharded: bool
     mode: str
     search_seconds: float
     compile_seconds: float      # the matcher's warmup (K1 build on a card)
@@ -106,7 +127,11 @@ class CacheEntry:
                                 # N same-class tickets in one round → +1)
 
     def count(self, *, chunk: int | None = None) -> CountResult:
-        """Run the cached matcher to completion."""
+        """Run the cached matcher to completion.  `chunk` stripes the
+        outer loop on one device; a sharded matcher fixed its stripes
+        when it was built."""
+        if self.sharded:
+            return self._finish(self.matcher.count())
         return self._finish(self.matcher.count(chunk=chunk))
 
     def count_partial(self, state=None, *, chunk: int | None = None,
@@ -114,7 +139,11 @@ class CacheEntry:
         """Preemptible execution: run up to `max_dispatches` dispatches
         and return ``(state, result)`` — result None while work remains
         (pass state back in to resume; the completed count is
-        bit-identical to :meth:`count`)."""
+        bit-identical to :meth:`count`).  A sharded count is one
+        collective pass (or a few, escalating), so it ignores the budget
+        and always completes with state None."""
+        if self.sharded:
+            return None, self._finish(self.matcher.count())
         state, out = self.matcher.count_partial(
             state, chunk=chunk, max_dispatches=max_dispatches)
         return state, (None if out is None else self._finish(out))
@@ -186,15 +215,18 @@ class PlanCache:
         chunk: int | None = None,
         arrays=None,
         device="cuda",
+        group=None,
         warm: bool = True,
         graph_fp: tuple | None = None,
     ) -> tuple[CacheEntry, bool]:
         """Return (entry, was_hit).  Misses run the configuration search
         (or load it from the store), build the plan and (when `warm`)
         warm the matcher on `device` before the entry becomes visible —
-        a hit never searches or warms.  `graph_fp` overrides the graph
-        facet of the key: live engines pass their `EpochStamp.plan_key`
-        (stable across edge mutations) so plans survive churn."""
+        a hit never searches or warms.  With `group` the matcher is a
+        `ShardedMatcher` over its ranks (`chunk` = stripe chunk).
+        `graph_fp` overrides the graph facet of the key: live engines
+        pass their `EpochStamp.plan_key` (stable across edge mutations)
+        so plans survive churn."""
         if mode not in MODES:
             raise ValueError(f"unknown mode {mode!r}; have {MODES}")
         cfg = cfg or ExecutorConfig()
@@ -203,7 +235,8 @@ class PlanCache:
             graph_fp if graph_fp is not None
             else graph_fingerprint(graph, stats),
             cfg, mode=mode, use_iep=use_iep,
-            layout_fp=layout_fingerprint(chunk, cfg),
+            layout_fp=layout_fingerprint(chunk, cfg, group=group,
+                                         device=device),
         )
         entry = self._entries.get(key)
         if entry is not None:
@@ -220,7 +253,8 @@ class PlanCache:
                 self.stats.persist_hits += 1
                 entry = self._install_record(rec, key, graph, cfg=cfg,
                                              chunk=chunk, arrays=arrays,
-                                             device=device, warm=warm)
+                                             device=device, group=group,
+                                             warm=warm)
                 self._insert(key, entry)
                 return entry, False
 
@@ -234,14 +268,17 @@ class PlanCache:
 
         matcher, compile_s = self._matcher(
             "cache.compile", plan, key, graph, cfg=cfg, chunk=chunk,
-            arrays=arrays, device=device, warm=warm)
+            arrays=arrays, device=device, group=group, warm=warm)
         entry = CacheEntry(
             canon_key=key[0], pattern=plan.pattern, config=config,
-            plan=plan, matcher=matcher, mode=mode,
-            search_seconds=search_s, compile_seconds=compile_s,
+            plan=plan, matcher=matcher, sharded=group is not None,
+            mode=mode, search_seconds=search_s, compile_seconds=compile_s,
         )
-        # write-behind: persist the searched result
-        if self.store is not None:
+        # write-behind: persist the searched result (plan-only; under a
+        # group rank 0 alone writes, after every rank built the matcher
+        # and so had read the store for this key)
+        if self.store is not None and (group is None
+                                       or dist.get_rank(group) == 0):
             self.store.save(key, pattern=plan.pattern, config=config,
                             plan=plan, search_seconds=search_s,
                             compile_seconds=compile_s)
@@ -251,15 +288,24 @@ class PlanCache:
     # -------------------------------------------------------- persistence
     def _matcher(self, span: str, plan: MatchingPlan, key: tuple,
                  graph: GraphCSR, *, cfg: ExecutorConfig, chunk: int | None,
-                 arrays, device, warm: bool) -> tuple[Matcher, float]:
-        """A matcher for `plan`, warmed (and counted as a compile) when
-        `warm`; returns it with the warmup's seconds."""
-        matcher = Matcher(graph, plan, cfg, arrays=arrays, device=device)
+                 arrays, device, group, warm: bool) -> tuple[object, float]:
+        """A matcher for `plan` (sharded over `group` when given), warmed
+        (and counted as a compile) when `warm`; returns it with the
+        warmup's seconds."""
+        if group is not None:
+            matcher = ShardedMatcher(graph, plan, group, cfg=cfg,
+                                     chunk=chunk, arrays=arrays,
+                                     device=device)
+        else:
+            matcher = Matcher(graph, plan, cfg, arrays=arrays, device=device)
         compile_s = 0.0
         if warm:
             with get_tracer().span(span, canon_key=key[0], mode=key[3]), \
                     timer() as t:
-                matcher.warmup(chunk=chunk)
+                if group is not None:
+                    matcher.warmup()      # the chunk is in the stripes
+                else:
+                    matcher.warmup(chunk=chunk)
             compile_s = t.seconds
             self.stats.n_compiles += 1
             self.stats.compile_seconds += compile_s
@@ -267,28 +313,28 @@ class PlanCache:
 
     def _install_record(self, rec, key: tuple, graph: GraphCSR, *,
                         cfg: ExecutorConfig, chunk: int | None, arrays,
-                        device, warm: bool) -> CacheEntry:
+                        device, group=None, warm: bool) -> CacheEntry:
         """Turn a loaded StoreRecord into a live warmed entry: no
         configuration search; the matcher's warmup counts as a compile,
         as in the reference's fallback when no executable installs."""
         matcher, compile_s = self._matcher(
             "cache.warm", rec.plan, key, graph, cfg=cfg, chunk=chunk,
-            arrays=arrays, device=device, warm=warm)
+            arrays=arrays, device=device, group=group, warm=warm)
         return CacheEntry(
             canon_key=key[0], pattern=rec.pattern, config=rec.config,
-            plan=rec.plan, matcher=matcher, mode=rec.mode,
-            search_seconds=0.0, compile_seconds=compile_s,
+            plan=rec.plan, matcher=matcher, sharded=group is not None,
+            mode=rec.mode, search_seconds=0.0, compile_seconds=compile_s,
         )
 
     def preload(self, graph: GraphCSR, stats: GraphStats, *,
                 cfg: ExecutorConfig | None = None, chunk: int | None = None,
-                arrays=None, device="cuda", warm: bool = True,
+                arrays=None, device="cuda", group=None, warm: bool = True,
                 graph_fp: tuple | None = None) -> int:
         """Warm-from-disk: install every store record compatible with the
         current serving context (same graph/executor/layout fingerprints
         — checked by re-deriving each record's key digest) before the
         first request arrives.  Returns the number of entries installed.
-        `graph_fp` as in :meth:`get_or_build`."""
+        `group` and `graph_fp` as in :meth:`get_or_build`."""
         if self.store is None:
             return 0
         from .store import key_digest
@@ -296,7 +342,7 @@ class PlanCache:
         cfg = cfg or ExecutorConfig()
         gfp = (graph_fp if graph_fp is not None
                else graph_fingerprint(graph, stats))
-        lfp = layout_fingerprint(chunk, cfg)
+        lfp = layout_fingerprint(chunk, cfg, group=group, device=device)
         installed = 0
         for rec in self.store.records():
             key = self.entry_key(rec.pattern, gfp, cfg, mode=rec.mode,
@@ -306,7 +352,7 @@ class PlanCache:
             self.stats.preloads += 1
             self._insert(key, self._install_record(
                 rec, key, graph, cfg=cfg, chunk=chunk, arrays=arrays,
-                device=device, warm=warm))
+                device=device, group=group, warm=warm))
             installed += 1
         return installed
 

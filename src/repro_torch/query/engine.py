@@ -1,4 +1,4 @@
-"""QueryEngine — the batched pattern-count request path on one device.
+"""QueryEngine — the batched pattern-count request path.
 
 Port of `repro/query/engine.py`.  The engine loads a dataset once: the
 CSR is uploaded to the device a single time (shared by every cached
@@ -43,8 +43,14 @@ stats-epoch plan key, and a `CountMaintainer` memoizes counts on the
 edge-epoch key and recounts only dirty root spans.
 
 The constructor takes ``device=`` (default ``"cuda"``, which raises
-without a card) where the reference takes ``mesh=`` / ``axis=``;
-`ShardedMatcher` waits for the multi-GPU slice.
+without a card): the card of this process.  ``group=``, a
+`torch.distributed` process group, is the counterpart of the
+reference's ``mesh=`` / ``axis=``: every cached matcher is then a
+`ShardedMatcher` striped over the group's ranks, one process per GPU.
+Every rank builds the same engine and makes the same calls in the same
+order (the same requests, the same mutations), since planning a miss
+and counting are collectives; a sharded count is one dispatch unit of a
+round and ignores the preemption budget; only rank 0 writes the store.
 """
 from __future__ import annotations
 
@@ -52,8 +58,10 @@ import warnings
 from collections import deque
 from dataclasses import dataclass
 
-from ..core.executor import (ExecutorConfig, Matcher, compute_stats,
-                             device_graph)
+import torch.distributed as dist
+
+from ..core.executor import (ExecutorConfig, Matcher, ShardedMatcher,
+                             compute_stats, device_graph)
 from ..core.pattern import Pattern
 from ..core.perf_model import GraphStats
 from ..device import resolve_device
@@ -180,7 +188,8 @@ class _InFlight:
 
 
 class QueryEngine:
-    """Serve pattern-count queries over one resident graph on one device.
+    """Serve pattern-count queries over one resident graph, on one device
+    or sharded over the ranks of a process group.
 
     Parameters
     ----------
@@ -191,7 +200,10 @@ class QueryEngine:
              bound frontier memory and give preemption finer grain at the
              price of more dispatches per query.
     device:  where the graph lives and counts run (default ``"cuda"``;
-             ``"cpu"`` only when asked).
+             ``"cpu"`` only when asked); under a group, this rank's card.
+    group:   optional `torch.distributed` process group; when given,
+             counts run sharded over its ranks (the reference's
+             ``mesh=`` / ``axis=``).
     tenant_depth:  admission bound — max queued tickets per tenant;
              ``None`` (default) admits everything.
     tenant_shares: tickets drained per tenant per take-cycle of the
@@ -207,7 +219,7 @@ class QueryEngine:
     """
 
     def __init__(self, graph: GraphCSR, *, cfg: ExecutorConfig | None = None,
-                 chunk: int | None = None, device="cuda",
+                 chunk: int | None = None, device="cuda", group=None,
                  cache: PlanCache | None = None,
                  store=None,
                  stats: GraphStats | None = None,
@@ -229,6 +241,9 @@ class QueryEngine:
         self.cfg = cfg or ExecutorConfig()
         self.chunk = chunk
         self.device = resolve_device(device)
+        self.group = group
+        # under a group rank 0 alone writes the store; every rank reads
+        self._writes = group is None or dist.get_rank(group) == 0
         if cache is None:
             cache = PlanCache(max_entries=DEFAULT_MAX_ENTRIES, store=store)
         elif store is not None and cache.store is None:
@@ -246,7 +261,7 @@ class QueryEngine:
                     stats = compute_stats(graph, self.cfg,
                                           device=self.device,
                                           arrays=self._arrays)
-                    if self.cache.store is not None:
+                    if self.cache.store is not None and self._writes:
                         self.cache.store.save_graph_stats(
                             graph.fingerprint, stats)
         self.stats = stats
@@ -329,7 +344,7 @@ class QueryEngine:
                 request.pattern, self.graph, self.stats,
                 cfg=self.cfg, mode=request.mode, use_iep=request.use_iep,
                 chunk=self.chunk, arrays=self._arrays, device=self.device,
-                graph_fp=self._epoch.plan_key,
+                group=self.group, graph_fp=self._epoch.plan_key,
             )
             sp.set(cache_hit=hit, canon_key=entry.canon_key)
         return PlannedQuery(entry=entry, cache_hit=hit)
@@ -445,13 +460,13 @@ class QueryEngine:
                 live.stats_epoch += 1
                 self.stats = compute_stats(live.view, self.cfg,
                                            device=self.device)
-                if self.cache.store is not None:
+                if self.cache.store is not None and self._writes:
                     self.cache.store.save_graph_stats(
                         live.view.fingerprint, self.stats)
             self._refresh_live()
         self.mutations_applied += applied
         self.last_round_mutations = batches
-        if self.cache.store is not None:
+        if self.cache.store is not None and self._writes:
             self.cache.store.save_overlay(live.to_record())
         return applied
 
@@ -468,9 +483,15 @@ class QueryEngine:
                 entry.matcher.rebind(arrays, graph=view)
                 self.matcher_rebinds += 1
             except ValueError:
-                matcher = Matcher(view, entry.plan, self.cfg, arrays=arrays,
-                                  device=self.device)
-                matcher.warmup(chunk=self.chunk)
+                if entry.sharded:
+                    matcher = ShardedMatcher(
+                        view, entry.plan, self.group, cfg=self.cfg,
+                        chunk=self.chunk, arrays=arrays, device=self.device)
+                    matcher.warmup()
+                else:
+                    matcher = Matcher(view, entry.plan, self.cfg,
+                                      arrays=arrays, device=self.device)
+                    matcher.warmup(chunk=self.chunk)
                 self.cache.stats.n_compiles += 1
                 entry.matcher.release()
                 entry.matcher = matcher
@@ -591,7 +612,9 @@ class QueryEngine:
                     fl.state, out = entry.count_partial(
                         fl.state, chunk=self.chunk, max_dispatches=remaining)
             fl.seconds += t_run.seconds
-        used = max(fl.state.dispatches - before, 0)
+        # a sharded count reports no per-dispatch state: one unit
+        used = (1 if fl.state is None
+                else max(fl.state.dispatches - before, 0))
         if out is None:
             return False, used
         entry.executions += 1
@@ -688,7 +711,7 @@ class QueryEngine:
         number of entries installed (0 without an attached store)."""
         return self.cache.preload(
             self.graph, self.stats, cfg=self.cfg, chunk=self.chunk,
-            arrays=self._arrays, device=self.device,
+            arrays=self._arrays, device=self.device, group=self.group,
             graph_fp=self._epoch.plan_key)
 
     # ------------------------------------------------------------- reporting
@@ -719,7 +742,8 @@ class QueryEngine:
     def summary(self) -> dict:
         out = {
             "graph": self.graph.name,
-            "devices": 1,
+            "devices": 1 if self.group is None else dist.get_world_size(
+                self.group),
             "device": str(self.device),
             "stats_seconds": self.stats_seconds,
             "latency": self.latency_percentiles(),

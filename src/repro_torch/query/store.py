@@ -52,6 +52,11 @@ down serving.
 
 Writes are atomic (tmp file + `os.replace`) so a crashed writer or two
 racing replicas warming the same dir never leave torn records.
+
+Entries of a sharded cache (a `ShardedMatcher` over a `torch.distributed`
+group) persist plan-only like every other, with ``"sharded": true`` read
+from the key's layout fingerprint; the cache lets rank 0 alone write,
+and every rank reads.
 """
 from __future__ import annotations
 
