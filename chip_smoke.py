@@ -134,7 +134,7 @@ run outside a checkout of this repository.  Phases, one line each:
     `count_embeddings_sharded` on small-rmat (the triangle and P1); then
     `torchrun` with 2 and with 4 ranks sharing the card under gloo (the
     backend rule of `launch/mesh.py`), through `launch.mine` (the
-    triangle) and `launch.query_serve` (the triangle, P1 and an
+    triangle, at 2 ranks) and `launch.query_serve` (the triangle, P1 and an
     isomorphic P1 coalesced with it, whole P1 at the stripe chunk
     `SHARD_P1_CHUNK`) on wiki-vote-syn from capacity 2^20; where the
     machine has more than one card, both launchers again with a card per
@@ -143,6 +143,24 @@ run outside a checkout of this repository.  Phases, one line each:
     that every rank launched K1 in exactly the plans' modes, and prints
     each rank's wall before the reductions, its K1 launches and the
     balance, max over mean rank wall.
+16. the gateway's sharded graph tenant and the static verifier:
+    `torchrun` with 2 ranks sharing the card (gloo) of
+    `launch.gateway --no-lm --listen 0 --model-buckets` on
+    wiki-vote-syn, rank 0 fronting the RPC server and broadcasting each
+    round to rank 1 (`serve/spmd.py`); this process pipelines the
+    triangle, P1, an isomorphic P1 (coalesced with it) and the triangle
+    under the graphzero IEP plan to rank 0 (`RPCClient.submit_many`),
+    holds the counts to phases 4 and 15's and shuts the server down;
+    every rank must exit 0 and launch K1 in mask, count and signed mode
+    (with more cards, the same under NCCL, a card per rank).  Beside it
+    on the host, `python -m repro_torch.analysis` (every pass) and its
+    deep kernel-contract pass over wiki-vote-syn's buckets must exit 0.
+    The Python mirror of K1's limits must equal the library's exports,
+    and a call one past them (P = 17, 17 comparisons), which the static
+    pass flags, must be refused on the card with an error by the
+    kernels' launchers and the wrapper.  `examples/torch_quickstart.py`
+    and `examples/torch_motif_counting_iep.py` run on the card, each
+    count equal to the oracle's.
 
 Every count of phases 3–4 sets K1's launch counters to 0 just before it
 and reads them just after; a kernel-path count must launch exactly the
@@ -159,16 +177,18 @@ around each gateway run and each live count, must show exactly the
 modes of the plans run (none for a memoized count), and K4's, around
 each prefill and decode call, 28 per prefill and none in decode; in
 phase 15 K1's, around the one-rank counts and around each rank's serve
-(the launchers' own records), exactly the plans' modes in every rank.
+(the launchers' own records), exactly the plans' modes in every rank;
+in phase 16, each gateway rank's records, mask, count and signed.
 
-Counts are integers and every comparison of phases 2–6 and 10–15 is
+Counts are integers and every comparison of phases 2–6 and 10–16 is
 exact (no tolerance).  The last two lines are the kernels record (K1's
 three modes and its gathered-window entry, K2 and K3 with the first
 version's time as `linear_ms`, K4 with its kernel `variant` and
 `tflops`; `front_door_launches`: K1's launches per mode in phase 14's
 cold serve and K4's per prefill of its graph + LM run;
 `sharded_launches`: K1's launches per rank in phase 15's query_serve
-runs) and the device record (JSON).
+runs; `gateway_sharded_launches`: the same in phase 16's gateway) and
+the device record (JSON).
 """
 from __future__ import annotations
 
@@ -2901,22 +2921,23 @@ def shard_reckoning(card, roots=512, worlds=(2, 4),
     return {"needed": needed, "ms": ms, "bounds": bounds, "costs": costs}
 
 
-def shard_serve(world, backend, card) -> list:
+def shard_serve(world, backend, card, mine=True) -> list:
     """Phase 15's launcher runs at one world size: `launch.mine` on the
-    triangle, then `launch.query_serve` on the triangle, P1 and an
-    isomorphic P1 (coalesced with it), whole wiki-vote-syn from capacity
-    2^20 at the stripe chunk `SHARD_P1_CHUNK`; returns K1's launches per
-    rank in the serve."""
+    triangle (with `mine`), then `launch.query_serve` on the triangle, P1
+    and an isomorphic P1 (coalesced with it), whole wiki-vote-syn from
+    capacity 2^20 at the stripe chunk `SHARD_P1_CHUNK`; returns K1's
+    launches per rank in the serve."""
     import tempfile
 
     base = ["--dataset", SHARD_DATASET, "--capacity", str(SHARD_CAPACITY)]
     tag = f"W={world} {backend}"
-    _, wall = torchrun(f"mine triangle {tag}", world,
-                       "repro_torch.launch.mine",
-                       ["--pattern", "triangle", *base], [WIKI_TRIANGLES],
-                       {"count"}, backend)
-    log(f"phase 15: mine triangle {tag}: {wall:.1f}s in all (process start "
-        f"included) on {card}")
+    if mine:
+        _, wall = torchrun(f"mine triangle {tag}", world,
+                           "repro_torch.launch.mine",
+                           ["--pattern", "triangle", *base],
+                           [WIKI_TRIANGLES], {"count"}, backend)
+        log(f"phase 15: mine triangle {tag}: {wall:.1f}s in all (process "
+            f"start included) on {card}")
     with tempfile.NamedTemporaryFile("w", suffix=".jsonl",
                                      delete=False) as f:
         f.write('{"pattern": "triangle"}\n{"pattern": "P1"}\n'
@@ -2941,8 +2962,8 @@ def shard_serve(world, backend, card) -> list:
 def sharded_phase(card) -> dict:
     """Phase 15: multi-GPU counting.  (a) One rank under NCCL through
     `count_embeddings_sharded` on small-rmat; (b) `torchrun` with 2 and
-    4 ranks sharing the card under gloo, through `launch.mine` and
-    `launch.query_serve` on wiki-vote-syn at capacity 2^20: the
+    4 ranks sharing the card under gloo, through `launch.mine` (2 ranks)
+    and `launch.query_serve` on wiki-vote-syn at capacity 2^20: the
     triangles at both world sizes, whole P1 at both; (c) NCCL across
     min(cards, 4) cards where there is more than one.  Counts equal
     phase 4's single-device values; every rank launches K1 in exactly
@@ -3001,10 +3022,12 @@ def sharded_phase(card) -> dict:
             close_group()
 
     # ---- (b) ranks sharing the card: gloo (NCCL refuses two ranks on
-    # one device), through the launchers
+    # one device), through the launchers; `mine` at W = 2 only, which
+    # keeps the script near half its time limit with phase 16
     for world in (2, 4):
         launches[f"W{world} triangle + P1"] = shard_serve(
-            world, "gloo" if world > cards else "nccl", card)
+            world, "gloo" if world > cards else "nccl", card,
+            mine=world == 2)
 
     # ---- (c) a card per rank, where the machine has more than one
     if cards > 1:
@@ -3015,6 +3038,262 @@ def sharded_phase(card) -> dict:
         log("phase 15: one card: no NCCL run across cards")
     log(f"phase 15: sharded checks in {time.perf_counter() - t_phase:.1f}s")
     return launches
+
+
+# ------------------------------------------------------------ phase 16 --
+GW_DATASET = "wiki-vote-syn"
+GW_CAPACITY = 1 << 20
+GW_DEVICE = "cuda"
+# the batch one client pipelines to rank 0 (`RPCClient.submit_many`):
+# the triangle, P1 and an isomorphic P1 (coalesced with it), and the
+# triangle under the graphzero IEP plan, whose tail runs K1's signed
+# mode; then the counts each must have
+GW_BATCH = [{"pattern": "triangle"}, {"pattern": "P1"},
+            {"pattern": {"n": 5, "edges": [[0, 1], [1, 2], [2, 3], [3, 0],
+                                           [4, 0], [4, 1]],
+                         "name": "house-b"}},
+            {"pattern": "triangle", "mode": "graphzero", "use_iep": True}]
+GW_COUNTS = [WIKI_TRIANGLES, WIKI_P1, WIKI_P1, WIKI_TRIANGLES]
+GW_MODES = {"mask", "count", "signed"}
+EXAMPLES = (("torch_quickstart.py", TINY_ER_ORACLE["P1"]),
+            ("torch_motif_counting_iep.py", 612))
+
+
+def gateway_serve(world, backend, card) -> dict:
+    """`torchrun` of `launch.gateway --no-lm --listen 0 --model-buckets`
+    on GW_DATASET at `world` ranks; this process is the client: it
+    pipelines GW_BATCH to rank 0, reads the results and shuts the
+    server down.  Every rank must exit 0 on `backend`, launch K1 in
+    exactly GW_MODES, and rank 0 alone print.  Returns the per-rank
+    records, the results and the walls."""
+    import re
+    import signal
+    import subprocess
+    import tempfile
+
+    from repro_torch.serve.rpc import RPCClient
+
+    tag = f"W={world} {backend}"
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS="1")
+    with tempfile.TemporaryDirectory() as tmp:
+        port_file = os.path.join(tmp, "port")
+        out_path = os.path.join(tmp, "out.log")
+        t0 = time.perf_counter()
+        with open(out_path, "w") as out_f:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "torch.distributed.run",
+                 "--standalone", "--nproc-per-node", str(world), "-m",
+                 "repro_torch.launch.gateway", "--no-lm", "--model-buckets",
+                 "--dataset", GW_DATASET, "--capacity", str(GW_CAPACITY),
+                 "--chunk", str(SHARD_P1_CHUNK[world]), "--graph-quantum",
+                 "8", "--listen", "0", "--port-file", port_file,
+                 "--device", GW_DEVICE], cwd=ROOT, env=env, text=True,
+                stdout=out_f, stderr=subprocess.STDOUT,
+                start_new_session=True)
+        try:
+            while not os.path.exists(port_file):
+                check(proc.poll() is None, f"gateway {tag} exited: "
+                      + open(out_path).read()[-3000:])
+                check(time.perf_counter() - t0 < SHARD_TIMEOUT_S,
+                      f"gateway {tag} never listened")
+                time.sleep(0.1)
+            up = time.perf_counter() - t0
+            host, port = open(port_file).read().split()
+            client = RPCClient(host, int(port), timeout=SHARD_TIMEOUT_S)
+            try:
+                t1 = time.perf_counter()
+                tickets = client.submit_many(GW_BATCH)
+                results = [client.result(t) for t in tickets]
+                batch_s = time.perf_counter() - t1
+                stats = client.stats()["stats"]
+                client.shutdown()
+            finally:
+                client.close()
+            rc = proc.wait(timeout=SHARD_TIMEOUT_S)
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+        wall = time.perf_counter() - t0
+        out = open(out_path).read()
+    for ln in out.splitlines():
+        if ln.startswith(("[gateway]", "[group]")):
+            log(f"phase 16: {tag}: {ln}")
+    if rc != 0:
+        log(out[-4000:])
+    check(rc == 0, f"gateway {tag}: torchrun exited {rc}")
+    check("still referenced" not in out and "terminate called" not in out,
+          f"gateway {tag}: a rank kept or aborted its group")
+    m = re.search(r"\[group\] world=(\d+) backend=(\w+)", out)
+    check(m is not None and (int(m.group(1)), m.group(2)) == (world, backend),
+          f"gateway {tag}: group {m and m.groups()}")
+    check(out.count("[gateway] listening on") == 1,
+          f"gateway {tag}: rank 0 alone prints")
+    counts = [r["count"] for r in results]
+    check(counts == GW_COUNTS, f"gateway {tag}: counts {counts} != "
+          f"{GW_COUNTS} (phases 4 and 15)")
+    check([r["coalesced"] for r in results] == [False, False, True, False],
+          f"gateway {tag}: coalescing {[r['coalesced'] for r in results]}")
+    check(not any(r["overflowed"] for r in results),
+          f"gateway {tag}: a count overflowed")
+    check(stats["devices"] == world and stats["coalesced"] == 1
+          and stats["executions"] == 3,
+          f"gateway {tag}: {stats['devices']} ranks, {stats['executions']} "
+          f"executions, {stats['coalesced']} coalesced")
+    ranks = [dict(rank=int(r), wall=float(w), passes=int(p),
+                  launches=dict(mask=int(a), count=int(b), signed=int(c)))
+             for r, w, p, a, b, c in re.findall(RANK_LINE, out)]
+    check([r["rank"] for r in ranks] == list(range(world)),
+          f"gateway {tag}: rank lines {ranks}")
+    for r in ranks:
+        got = {k for k, v in r["launches"].items() if v}
+        check(got == GW_MODES, f"gateway {tag}: rank {r['rank']} launched "
+              f"K1 in {r['launches']}, want {sorted(GW_MODES)}")
+    p1 = results[1]
+    log(f"phase 16: gateway {tag}: listening {up:.1f}s after start; the "
+        f"pipelined batch answered in {batch_s:.3f}s; whole P1 latency "
+        f"{p1['latency_s']:.3f}s (search {p1['search_seconds']:.3f}s, "
+        f"warmup {p1['compile_seconds']:.3f}s) max_needed "
+        f"{p1['max_needed']:,}; triangle {results[0]['latency_s']:.3f}s, "
+        f"graphzero IEP triangle {results[3]['latency_s']:.3f}s; rank walls "
+        f"{[r['wall'] for r in ranks]}; K1 launches per rank "
+        f"{[r['launches'] for r in ranks]}; {wall:.1f}s in all on {card}")
+    return {"ranks": ranks, "results": results, "batch_s": batch_s,
+            "wall": wall}
+
+
+def k1_limits_phase() -> None:
+    """The Python mirror of K1's limits equals what the built library
+    exports; a call past them, which the static pass flags, is refused
+    on the card with an error by the kernels' launchers and by the
+    wrappers, and never answered."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.analysis import check_spec
+    from repro_torch.analysis.kernel_contracts import LevelExpandSpec
+    from repro_torch.kernels import intersect, ops
+
+    lib = intersect.load()
+    check((lib.level_expand_max_dirs(), lib.level_rows_max_preds())
+          == (ops.MAX_DIRS, ops.MAX_PREDS),
+          f"K1 exports {lib.level_expand_max_dirs()} / "
+          f"{lib.level_rows_max_preds()}, the mirror says {ops.MAX_DIRS} / "
+          f"{ops.MAX_PREDS}")
+    spec = LevelExpandSpec(B=4, width=2, P=2, window=2, flat_len=8)
+    B, dev = 4, "cuda"
+
+    def z(*shape, dtype=torch.int32):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    refused = 0
+    for P, E in ((ops.MAX_PREDS + 1, 0), (2, ops.MAX_DIRS + 1)):
+        flagged = {f.rule for f in check_spec(
+            dataclasses.replace(spec, P=P, E=E))}
+        check(flagged & {"kernel-preds", "kernel-dirs"},
+              f"the static pass does not flag P={P} E={E}")
+        args = (z(8), z(B), z(B), z(8), z(P, B), z(P, B))
+        extra, dirs = (z(B, E), (1,) * E) if E else (None, ())
+        before = dict(ops.launches)
+        for name, call in (
+                ("intersect.level_rows_cuda", lambda: intersect.level_rows_cuda(
+                    *args, None, extra, None, dirs=dirs, width=2, window=2)),
+                ("intersect.level_compact_cuda",
+                 lambda: intersect.level_compact_cuda(
+                     *args, None, extra, z(B), z(dtype=torch.int64), z(9),
+                     z(9), dirs=dirs, width=2, window=2)),
+                ("ops.level_expand_rows", lambda: ops.level_expand_rows(
+                    *args, None, extra, dirs=dirs, width=2, window=2))):
+            try:
+                call()
+            except ValueError as e:
+                refused += 1
+                log(f"phase 16: {name} P={P} E={E} refused: {e}")
+            else:
+                check(False, f"{name} answered P={P} E={E}")
+        torch.cuda.synchronize()
+        check(dict(ops.launches) == before, "a refused call counted a launch")
+    log(f"phase 16: K1's limits: library exports dirs "
+        f"{lib.level_expand_max_dirs()} / preds {lib.level_rows_max_preds()} "
+        f"== the Python mirror; {refused} calls past them refused on the card")
+
+
+def gateway_sharded_phase(card) -> dict:
+    """Phase 16: the gateway's sharded graph tenant and the static
+    verifier.  `python -m repro_torch.analysis` (all passes) and its
+    deep kernel-contract pass over wiki-vote-syn's buckets run on the
+    host beside the rest of the phase; K1's limits are checked against
+    the library; `torchrun` with 2 ranks sharing the card (gloo) serves
+    GW_BATCH through rank 0's RPC server (and under NCCL across cards,
+    where there are more); the two examples run on the card.  Returns
+    K1's launches per rank and mode."""
+    import subprocess
+
+    import torch
+
+    t_phase = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS="1")
+    analysis = {
+        "all passes": ["-m", "repro_torch.analysis"],
+        "kernel contracts --deep on wiki-vote-syn's buckets": [
+            "-m", "repro_torch.analysis", "--kernel-contracts", "--deep",
+            "--dataset", GW_DATASET, "--model-buckets"]}
+    procs = {what: subprocess.Popen([sys.executable, *argv], cwd=ROOT,
+                                    env=env, text=True,
+                                    stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT)
+             for what, argv in analysis.items()}
+    try:
+        k1_limits_phase()
+        cards = torch.cuda.device_count()
+        runs = {"W2 gateway": gateway_serve(2, "gloo" if cards < 2
+                                            else "nccl", card)}
+        if cards > 1:
+            world = min(cards, 4)
+            runs[f"W{world} nccl gateway"] = gateway_serve(world, "nccl",
+                                                           card)
+        else:
+            log("phase 16: one card: no NCCL run across cards")
+        t0 = time.perf_counter()
+        ex = {name: subprocess.Popen(
+            [sys.executable, os.path.join(ROOT, "examples", name),
+             "--device", GW_DEVICE], cwd=ROOT, env=env, text=True,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+            for name, _ in EXAMPLES}
+        for name, want in EXAMPLES:
+            out, _ = ex[name].communicate(timeout=SHARD_TIMEOUT_S)
+            lines = [ln for ln in out.splitlines()
+                     if "count" in ln or "oracle" in ln]
+            for ln in lines:
+                log(f"phase 16: {name}: {ln}")
+            check(ex[name].returncode == 0 and "count == oracle" in out
+                  and f"oracle = {want}" in out,
+                  f"{name} exited {ex[name].returncode}: {out[-2000:]}")
+            launched = sum(int(n) for n in
+                           __import__("re").findall(r"(?:mask|count|signed)"
+                                                    r"=(\d+)", out))
+            check(GW_DEVICE != "cuda" or launched > 0,
+                  f"{name}: no K1 launch on the card")
+        log(f"phase 16: examples in {time.perf_counter() - t0:.1f}s")
+        for what, proc in procs.items():
+            out, _ = proc.communicate(timeout=SHARD_TIMEOUT_S)
+            log(f"phase 16: python -m repro_torch.analysis ({what}): exit "
+                f"{proc.returncode}: {out.splitlines()[0] if out else ''}")
+            check(proc.returncode == 0 and " 0 error(s)" in out,
+                  f"analysis ({what}) exited {proc.returncode}: "
+                  f"{out[-3000:]}")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    log(f"phase 16: sharded gateway checks in "
+        f"{time.perf_counter() - t_phase:.1f}s")
+    return {run: [r["launches"] for r in rec["ranks"]]
+            for run, rec in runs.items()}
 
 
 def ptxas_summary(log_text: str) -> list:
@@ -3110,6 +3389,13 @@ def main() -> int:
         if mode in ("mask", "count", "signed"):
             k["sharded_launches"] = {run: [r[mode] for r in ranks]
                                      for run, ranks in sharded.items()}
+    gateway_sharded = gateway_sharded_phase(card)
+    for k in kernels:
+        mode = k["name"].removeprefix("level_expand.")
+        if mode in ("mask", "count", "signed"):
+            k["gateway_sharded_launches"] = {
+                run: [r[mode] for r in ranks]
+                for run, ranks in gateway_sharded.items()}
     log(f"done in {time.perf_counter() - t_all:.1f}s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -22,15 +22,16 @@ from repro_torch.core.executor import (
     ExecutorConfig, compute_stats, count_embeddings, count_embeddings_sharded,
 )
 from repro_torch.core.oracle import count_embeddings_oracle
-from repro_torch.launch.mesh import close_group, init_group
+from repro_torch.launch.mesh import leaves_group, shared_group
 
 
+@leaves_group
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
     args = ap.parse_args(argv)
-    group, device = init_group(args.device)
+    group, device = shared_group(args.device)
     say = print if group.rank() == 0 else (lambda *a: None)
 
     # tiny-er keeps this demo quick; "small-rmat" (power-law) shows the
@@ -61,7 +62,6 @@ def main(argv=None) -> int:
     expect = count_embeddings_oracle(graph.n, graph.edge_array(), pattern)
     assert expect == single.count, (expect, single.count)
     say(f"oracle = {expect}  ✓")
-    close_group()
     return 0
 
 

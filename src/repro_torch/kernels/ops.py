@@ -46,6 +46,15 @@ NBR_PAD = torch.iinfo(torch.int32).max
 # that runs past a row) is the same in both packages.
 MAX_BLOCK_L = 512
 
+# K1's limits, mirrored once from the CUDA source (which exports them,
+# `intersect.load().level_expand_max_dirs()` / `level_rows_max_preds()`):
+# comparisons per level, LE_MAX_DIRS (csrc/level_expand.cu:45), and
+# predecessor rows of the row-sourced entries, LR_MAX_PREDS (:225).  The
+# wrappers refuse more on either route; `analysis.kernel_contracts`
+# proves the executor's call shapes stay within them.
+MAX_DIRS = 16
+MAX_PREDS = 16
+
 K1_MODES = ("mask", "count", "signed")
 launches = {**dict.fromkeys(K1_MODES, 0), "membership": 0,
             "intersect_count": 0, "flash": 0}
@@ -136,33 +145,11 @@ def level_expand(
     strictly increasing; `window` ≥ every lens[p, b] (only the first
     `window` entries of a row are searched); every row inside `flat`.
     All integer inputs are int32 and every input is contiguous and on
-    `cand`'s device."""
-    if cand.dim() != 2:
-        raise ValueError(f"cand must be [B, D], got {tuple(cand.shape)}")
-    B, D = cand.shape
+    `cand`'s device; at most `MAX_DIRS` comparisons."""
+    B, D, dirs, extra = validate_level_expand(
+        cand, flat, starts, lens, extra, cand_valid, dirs=dirs, count=count,
+        neg_from=neg_from)
     dev = cand.device
-    if starts.dim() != 2 or starts.shape[1] != B or starts.shape[0] < 1:
-        raise ValueError(f"starts must be [P>=1, {B}], got "
-                         f"{tuple(starts.shape)}")
-    P = starts.shape[0]
-    _check("cand", cand, torch.int32, (B, D), dev)
-    _check("flat", flat, torch.int32, None, dev)
-    if flat.dim() != 1:
-        raise ValueError(f"flat must be 1-D, got {tuple(flat.shape)}")
-    _check("starts", starts, torch.int32, (P, B), dev)
-    _check("lens", lens, torch.int32, (P, B), dev)
-    if cand_valid is not None:
-        _check("cand_valid", cand_valid, torch.bool, (B, D), dev)
-    dirs = tuple(int(d) for d in dirs)
-    if dirs:
-        if extra is None:
-            raise ValueError("dirs given without extra")
-        _check("extra", extra, torch.int32, (B, len(dirs)), dev)
-    else:
-        extra = None
-    if neg_from is not None and not count:
-        raise ValueError("neg_from needs count=True")
-
     if _route(dev) == "plain":
         return level_expand_ref(cand, flat, starts, lens, extra, cand_valid,
                                 dirs=dirs, count=count, neg_from=neg_from,
@@ -180,11 +167,53 @@ def level_expand(
     return out
 
 
+def _check_dirs(dirs, extra, B, dev):
+    """(dirs as ints, extra or None): the comparisons' checks."""
+    dirs = tuple(int(d) for d in dirs)
+    if len(dirs) > MAX_DIRS:
+        raise ValueError(f"{len(dirs)} comparisons exceed K1's {MAX_DIRS}")
+    if dirs:
+        if extra is None:
+            raise ValueError("dirs given without extra")
+        _check("extra", extra, torch.int32, (B, len(dirs)), dev)
+        return dirs, extra
+    return dirs, None
+
+
+def validate_level_expand(cand, flat, starts, lens, extra=None,
+                          cand_valid=None, *, dirs=(), count=False,
+                          neg_from=None):
+    """`level_expand`'s input checks — shapes, dtypes, devices, limits —
+    which read no values, so they run on `meta` tensors too; returns
+    (B, D, dirs, extra) with `dirs` as ints and `extra` None without
+    them."""
+    if cand.dim() != 2:
+        raise ValueError(f"cand must be [B, D], got {tuple(cand.shape)}")
+    B, D = cand.shape
+    dev = cand.device
+    if starts.dim() != 2 or starts.shape[1] != B or starts.shape[0] < 1:
+        raise ValueError(f"starts must be [P>=1, {B}], got "
+                         f"{tuple(starts.shape)}")
+    P = starts.shape[0]
+    _check("cand", cand, torch.int32, (B, D), dev)
+    _check("flat", flat, torch.int32, None, dev)
+    if flat.dim() != 1:
+        raise ValueError(f"flat must be 1-D, got {tuple(flat.shape)}")
+    _check("starts", starts, torch.int32, (P, B), dev)
+    _check("lens", lens, torch.int32, (P, B), dev)
+    if cand_valid is not None:
+        _check("cand_valid", cand_valid, torch.bool, (B, D), dev)
+    dirs, extra = _check_dirs(dirs, extra, B, dev)
+    if neg_from is not None and not count:
+        raise ValueError("neg_from needs count=True")
+    return B, D, dirs, extra
+
+
 def _check_rows(csrc, cstart, clen, flat, starts, lens, own, extra, dirs,
                 width):
-    """The row-sourced entries' input checks; returns (P, B, device,
-    dirs, extra) with `dirs` as ints and `extra` None without them.
-    Reads own's range on the host once (a sync), where `own` is given."""
+    """The row-sourced entries' common input checks, which read no
+    values; returns (P, B, device, dirs, extra) with `dirs` as ints and
+    `extra` None without them.  At most `MAX_PREDS` predecessors."""
     for name, t in (("csrc", csrc), ("flat", flat)):
         if isinstance(t, torch.Tensor) and t.dim() != 1:
             raise ValueError(f"{name} must be 1-D, got {tuple(t.shape)}")
@@ -192,6 +221,8 @@ def _check_rows(csrc, cstart, clen, flat, starts, lens, own, extra, dirs,
             or starts.shape[0] < 1:
         raise ValueError("starts must be a [P>=1, B] tensor")
     P, B = starts.shape
+    if P > MAX_PREDS:
+        raise ValueError(f"{P} predecessors exceed K1's {MAX_PREDS}")
     dev = csrc.device if isinstance(csrc, torch.Tensor) else None
     _check("csrc", csrc, torch.int32, None, dev)
     _check("cstart", cstart, torch.int32, (B,), dev)
@@ -201,19 +232,32 @@ def _check_rows(csrc, cstart, clen, flat, starts, lens, own, extra, dirs,
     _check("lens", lens, torch.int32, (P, B), dev)
     if own is not None:
         _check("own", own, torch.int32, (B,), dev)
-    dirs = tuple(int(d) for d in dirs)
-    if dirs:
-        if extra is None:
-            raise ValueError("dirs given without extra")
-        _check("extra", extra, torch.int32, (B, len(dirs)), dev)
-    else:
-        extra = None
+    dirs, extra = _check_dirs(dirs, extra, B, dev)
     if int(width) < 0:
         raise ValueError(f"width must be >= 0, got {width}")
+    return P, B, dev, dirs, extra
+
+
+def _check_own(own, P: int, B: int) -> None:
+    """The value check of the row-sourced entries: own's range, read on
+    the host once (a sync), where `own` is given."""
     if own is not None and B:
         lo, hi = (int(v) for v in torch.aminmax(own))
         if lo < -1 or hi >= P:
             raise ValueError(f"own outside [-1, {P}): [{lo}, {hi}]")
+
+
+def validate_level_expand_rows(csrc, cstart, clen, flat, starts, lens,
+                               own=None, extra=None, neg=None, *, dirs=(),
+                               width):
+    """`level_expand_rows`'s checks that read no values (they run on
+    `meta` tensors too); returns (P, B, device, dirs, extra)."""
+    P, B, dev, dirs, extra = _check_rows(csrc, cstart, clen, flat, starts,
+                                         lens, own, extra, dirs, width)
+    if neg is not None:
+        if neg.dim() != 2:
+            raise ValueError(f"neg must be [B, Q], got {tuple(neg.shape)}")
+        _check("neg", neg, torch.int32, (B, neg.shape[1]), dev)
     return P, B, dev, dirs, extra
 
 
@@ -245,13 +289,12 @@ def level_expand_rows(
     every candidate of row b (-1: none), so the kernel skips searching
     it.  All integer inputs are int32, contiguous and on `csrc`'s
     device; an `own` outside [-1, P) is refused (one read of its range
-    on the host)."""
-    P, B, dev, dirs, extra = _check_rows(csrc, cstart, clen, flat, starts,
-                                         lens, own, extra, dirs, width)
-    if neg is not None:
-        if neg.dim() != 2:
-            raise ValueError(f"neg must be [B, Q], got {tuple(neg.shape)}")
-        _check("neg", neg, torch.int32, (B, neg.shape[1]), dev)
+    on the host); at most `MAX_PREDS` predecessors and `MAX_DIRS`
+    comparisons."""
+    P, B, dev, dirs, extra = validate_level_expand_rows(
+        csrc, cstart, clen, flat, starts, lens, own, extra, neg, dirs=dirs,
+        width=width)
+    _check_own(own, P, B)
 
     if _route(dev) == "plain":
         return level_expand_rows_ref(csrc, cstart, clen, flat, starts, lens,
@@ -297,15 +340,10 @@ def level_expand_compact(
     Contracts: `level_expand_rows`'s, and `rows` int32 [B], `offset` an
     int64 0-d tensor, `parent` / `newcol` int32 [C + 1] with C >= 0, all
     contiguous and on `csrc`'s device."""
-    P, B, dev, dirs, extra = _check_rows(csrc, cstart, clen, flat, starts,
-                                         lens, own, extra, dirs, width)
-    _check("rows", rows, torch.int32, (B,), dev)
-    _check("offset", offset, torch.int64, (), dev)
-    if not isinstance(parent, torch.Tensor) or parent.dim() != 1 \
-            or parent.shape[0] < 1:
-        raise ValueError("parent must be a [C + 1] tensor, C >= 0")
-    _check("parent", parent, torch.int32, None, dev)
-    _check("newcol", newcol, torch.int32, tuple(parent.shape), dev)
+    P, B, dev, dirs, extra = validate_level_expand_compact(
+        csrc, cstart, clen, flat, starts, lens, own, extra, rows, offset,
+        parent, newcol, dirs=dirs, width=width)
+    _check_own(own, P, B)
 
     if _route(dev) == "plain":
         level_expand_compact_ref(csrc, cstart, clen, flat, starts, lens, own,
@@ -318,6 +356,23 @@ def level_expand_compact(
                        rows, offset, parent, newcol, dirs=dirs, width=width,
                        window=window)
     launches["mask"] += 1
+
+
+def validate_level_expand_compact(csrc, cstart, clen, flat, starts, lens,
+                                  own, extra, rows, offset, parent, newcol,
+                                  *, dirs=(), width):
+    """`level_expand_compact`'s checks that read no values (they run on
+    `meta` tensors too); returns (P, B, device, dirs, extra)."""
+    P, B, dev, dirs, extra = _check_rows(csrc, cstart, clen, flat, starts,
+                                         lens, own, extra, dirs, width)
+    _check("rows", rows, torch.int32, (B,), dev)
+    _check("offset", offset, torch.int64, (), dev)
+    if not isinstance(parent, torch.Tensor) or parent.dim() != 1 \
+            or parent.shape[0] < 1:
+        raise ValueError("parent must be a [C + 1] tensor, C >= 0")
+    _check("parent", parent, torch.int32, None, dev)
+    _check("newcol", newcol, torch.int32, tuple(parent.shape), dev)
+    return P, B, dev, dirs, extra
 
 
 # ------------------------------------------------- stacked membership ---

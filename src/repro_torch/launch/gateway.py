@@ -33,6 +33,17 @@ round (huge queries checkpoint and resume), `--tenant-depth` bounds
 each tenant's queue (admission control), `--live` serves a mutable
 graph (the `mutate` RPC verb).
 
+Under torchrun (world size > 1, without `--single-device`) the graph
+tenant is sharded over the ranks, one process per GPU
+(`serve/spmd.py`): rank 0 owns the scheduler, the RPC server and the
+LM tenant (on its card alone) and broadcasts each round to the other
+ranks, which replay it on their own `QueryEngine(group=)`; rank 0
+alone prints, with one line per rank (its counting wall and K1
+launches), and every rank exits with the same code.
+
+    PYTHONPATH=src torchrun --standalone --nproc-per-node 2 \
+        -m repro_torch.launch.gateway --no-lm --listen 0 --port-file F
+
 `run(parse_args(argv))` does what `main` does and returns the pieces it
 built (engine, gateway, results, LM session, RPC server) beside the exit
 code, for callers that check them.
@@ -43,6 +54,8 @@ import argparse
 import sys
 from dataclasses import dataclass
 
+from .mesh import leaves_group
+
 
 @dataclass
 class GatewayRun:
@@ -52,6 +65,7 @@ class GatewayRun:
     results: list             # resolved graph QueryResults, admission order
     session: object = None    # the LMSession, without --no-lm
     server: object = None     # the GatewayRPCServer, with --listen
+    follower: object = None   # a non-zero rank's Follower, sharded
 
 
 def parse_args(argv=None):
@@ -117,6 +131,9 @@ def parse_args(argv=None):
     # ---- shared
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
+    ap.add_argument("--single-device", action="store_true",
+                    help="serve on this process's device even under "
+                         "torchrun")
     ap.add_argument("--seed", type=int, default=0)
     from ..obs.cli import add_trace_args
 
@@ -124,8 +141,44 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
+@leaves_group
 def main(argv=None) -> int:
     return run(parse_args(argv)).rc
+
+
+def _quiet(*_a, **_kw) -> None:
+    pass
+
+
+def _sharded_exit(group, engine, before: dict, rc: int, log) -> int:
+    """Every rank's tail of a sharded run (collectives): the per-rank
+    counting walls and K1 launches, which rank 0 prints, then the
+    exit code agreed over the ranks."""
+    from ..kernels import ops
+    from .mesh import agreed_exit, rank_lines
+
+    launches = {k: ops.launches[k] - before[k] for k in ops.K1_MODES}
+    matchers = [e.matcher for e in engine.cache.entries()]
+    _, lines = rank_lines(
+        group, "[gateway]", wall=sum(m.local_seconds for m in matchers),
+        passes=sum(m.passes for m in matchers), launches=launches)
+    for line in lines:
+        log(line)
+    return agreed_exit(group, rc)
+
+
+def _result_rc(results, log) -> int:
+    rc = 0
+    bad = [r for r in results if r.verified is False]
+    if bad:
+        log(f"[gateway] VERIFY FAILED for {[r.pattern_name for r in bad]}")
+        rc = 1
+    over = [r for r in results if r.overflowed]
+    if over:
+        log(f"[gateway] OVERFLOWED (truncated counts) for "
+            f"{[r.pattern_name for r in over]}")
+        rc = rc or 3
+    return rc
 
 
 def run(args, *, log=print) -> GatewayRun:
@@ -133,6 +186,7 @@ def run(args, *, log=print) -> GatewayRun:
     the `[gateway]` lines."""
     from ..configs.graphpi import get_dataset, get_pattern
     from ..core.executor import ExecutorConfig, auto_buckets, compute_stats
+    from ..kernels import ops
     from ..launch.query_serve import build_requests
     from ..obs.cli import finish_tracing, start_tracing
     from ..obs import MetricsRegistry
@@ -141,6 +195,8 @@ def run(args, *, log=print) -> GatewayRun:
         Gateway, GraphQueryWorkload, LMDecodeWorkload, Share,
     )
     from ..serve.session import LMSession
+    from ..serve.spmd import Follower, LeaderEngine
+    from .mesh import launched_sharded, shared_group
 
     start_tracing(args)
 
@@ -151,11 +207,20 @@ def run(args, *, log=print) -> GatewayRun:
         log("[gateway] --resume requires --ckpt-dir")
         return GatewayRun(2, None, None, [])
 
+    # under torchrun every rank serves the graph tenant sharded: rank 0
+    # leads (scheduler, RPC server, LM tenant, all the printing), the
+    # other ranks follow its rounds (serve/spmd.py)
+    group, device = None, args.device
+    if launched_sharded(args.single_device):
+        group, device = shared_group(args.device, log=log)
+        if group.rank() != 0:
+            log = _quiet
+    leads = group is None or group.rank() == 0
     graph = get_dataset(args.dataset)
     cfg = ExecutorConfig(capacity=args.capacity)
     stats = None
     if args.model_buckets:
-        stats = compute_stats(graph, cfg, device=args.device)
+        stats = compute_stats(graph, cfg, device=device)
         from dataclasses import replace
 
         cfg = replace(cfg, degree_buckets=auto_buckets(graph, stats=stats))
@@ -164,23 +229,41 @@ def run(args, *, log=print) -> GatewayRun:
     # histogram and the scheduler's per-share turn histograms land in
     # the same snapshot (and reset_window resets both at once)
     metrics = MetricsRegistry()
-    engine = QueryEngine(
-        graph, cfg=cfg, chunk=args.chunk or None, device=args.device,
+    kw = dict(
+        cfg=cfg, chunk=args.chunk or None, device=device,
         cache=PlanCache(max_entries=args.max_entries or None, store=store),
         stats=stats, metrics=metrics,
         preempt_dispatches=args.preempt_dispatches or None,
-        tenant_depth=args.tenant_depth or None,
         live=args.live or None,
     )
+    depth = args.tenant_depth or None
+    listen = args.listen >= 0
+    if group is None:
+        engine = QueryEngine(graph, tenant_depth=depth, **kw)
+    elif leads:
+        engine = LeaderEngine(graph, group=group, tenant_depth=depth,
+                              stop_when_drained=not listen, **kw)
+    else:
+        # admission is rank 0's alone: a follower replays its decisions
+        engine = QueryEngine(graph, group=group, **kw)
+    where = (str(engine.device) if group is None else
+             f"{engine.summary()['devices']} ranks (rank 0 on "
+             f"{engine.device})")
     log(f"[gateway] graph={graph.name} (|V|={graph.n}, |E|={graph.m}) "
-        f"resident on {engine.device}"
+        f"resident on {where}"
         f"{'; LIVE (mutable, delta overlay)' if args.live else ''}"
         f"{'; model buckets ' + repr(cfg.degree_buckets) if args.model_buckets else ''}")
     if args.warm_from_disk:
         n = engine.warm_from_disk()
         log(f"[gateway] warm-from-disk: {n} plan(s) preloaded")
+    before = dict(ops.launches)
+    if not leads:
+        follower = Follower(engine).run()
+        results = follower.results()
+        rc = _sharded_exit(group, engine, before,
+                           _result_rc(results, log), log)
+        return GatewayRun(rc, engine, None, results, follower=follower)
 
-    listen = args.listen >= 0
     # a listening server starts with an empty queue unless a trace file
     # pre-seeds it — clients are the request source
     requests = [] if (listen and not args.requests) \
@@ -210,9 +293,10 @@ def run(args, *, log=print) -> GatewayRun:
     if listen:
         from ..serve.rpc import GatewayRPCServer
 
-        server = GatewayRPCServer(gw, graph_wl, host=args.host,
-                                  port=args.listen,
-                                  get_pattern=get_pattern)
+        server = GatewayRPCServer(
+            gw, graph_wl, host=args.host, port=args.listen,
+            get_pattern=get_pattern,
+            keepalive=None if group is None else engine.keepalive)
 
         def on_ready(host, port):
             log(f"[gateway] listening on {host}:{port}")
@@ -225,6 +309,8 @@ def run(args, *, log=print) -> GatewayRun:
                 os.replace(tmp, args.port_file)
 
         server.serve_forever(on_ready=on_ready)
+        if group is not None:
+            engine.stop()
         s = engine.summary()
         log(f"[gateway] served {server.rounds} rounds over "
             f"{server.connections} connection(s): "
@@ -240,11 +326,16 @@ def run(args, *, log=print) -> GatewayRun:
                 f"rebinds={lv['matcher_rebinds']} "
                 f"incremental={lv['incremental_hits']} "
                 f"memo_hits={lv['memo_hits']}")
+        rc = 0
+        if group is not None:
+            rc = _sharded_exit(group, engine, before, rc, log)
         finish_tracing(args, registry=metrics, tag="gateway")
-        return GatewayRun(0, engine, gw, graph_wl.results(), session,
+        return GatewayRun(rc, engine, gw, graph_wl.results(), session,
                           server)
 
     gw.run()
+    if group is not None:
+        engine.stop()
 
     results = graph_wl.results()
     for r in results:
@@ -286,16 +377,7 @@ def run(args, *, log=print) -> GatewayRun:
 
     finish_tracing(args, registry=metrics, tag="gateway")
 
-    rc = 0
-    bad = [r for r in results if r.verified is False]
-    if bad:
-        log(f"[gateway] VERIFY FAILED for {[r.pattern_name for r in bad]}")
-        rc = 1
-    over = [r for r in results if r.overflowed]
-    if over:
-        log(f"[gateway] OVERFLOWED (truncated counts) for "
-            f"{[r.pattern_name for r in over]}")
-        rc = rc or 3
+    rc = _result_rc(results, log)
     if args.expect_min_hits >= 0 and s["cache"]["hits"] < args.expect_min_hits:
         log(f"[gateway] EXPECTED >= {args.expect_min_hits} cache hits, "
             f"got {s['cache']['hits']}")
@@ -304,6 +386,8 @@ def run(args, *, log=print) -> GatewayRun:
         log(f"[gateway] EXPECTED >= {args.expect_coalesced} coalesced "
             f"tickets, got {s['coalesced']}")
         rc = rc or 2
+    if group is not None:
+        rc = _sharded_exit(group, engine, before, rc, log)
     return GatewayRun(rc, engine, gw, results, session)
 
 

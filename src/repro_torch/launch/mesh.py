@@ -20,7 +20,11 @@ Functions only: importing this module initializes no group.
 from __future__ import annotations
 
 import datetime
+import functools
+import gc
 import os
+import sys
+import weakref
 
 import torch
 import torch.distributed as dist
@@ -111,12 +115,49 @@ def shared_group(device="cuda", **kw):
     return _SHARED["world"]
 
 
-def close_group() -> None:
-    """Destroy the process-wide group (a collective) and forget it."""
+def close_group() -> bool:
+    """Leave the default group and free it (a collective); returns
+    whether it was freed.
+
+    `destroy_process_group` leaves gloo's worker threads running: the
+    group's backend joins them only when its last reference goes.  A
+    group still referenced when the interpreter exits is destroyed
+    during finalization, and a rank then aborts now and then (SIGABRT,
+    "terminate called without an active exception"), more often the
+    more launches share the host.  So every rank waits for the others
+    at a barrier, destroys the group, drops this module's references
+    and collects, which joins the threads while the interpreter runs.
+    That frees the group only when nothing else holds it: launchers
+    close it after the engines and matchers that held it are gone
+    (`leaves_group`).  A group still held is reported on stderr."""
     _SHARED.clear()
     _DEVICES.clear()
-    if dist.is_initialized():
-        dist.destroy_process_group()
+    if not dist.is_initialized():
+        return True
+    pg = weakref.ref(dist.group.WORLD)
+    rank = dist.get_rank()
+    dist.barrier()
+    dist.destroy_process_group()
+    gc.collect()
+    if pg() is None:
+        return True
+    print(f"[group] rank {rank}: the process group is still referenced "
+          f"after close; its worker threads outlive it", file=sys.stderr,
+          flush=True)
+    return False
+
+
+def leaves_group(main):
+    """Wrap a launcher's `main(argv)`: once it returns, close the group
+    it opened through `shared_group` (if it did), outside its frame, so
+    the objects that held the group are gone (`close_group`)."""
+    @functools.wraps(main)
+    def wrapped(argv=None):
+        rc = main(argv)
+        if "world" in _SHARED:
+            close_group()
+        return rc
+    return wrapped
 
 
 def gather(group, obj) -> list:
@@ -124,6 +165,14 @@ def gather(group, obj) -> list:
     out = [None] * dist.get_world_size(group)
     dist.all_gather_object(out, obj, group=group)
     return out
+
+
+def broadcast(group, obj, *, src: int = 0):
+    """Rank `src`'s `obj` on every rank (a collective; the other ranks'
+    `obj` is ignored)."""
+    box = [obj]
+    dist.broadcast_object_list(box, src=src, group=group)
+    return box[0]
 
 
 _DEVICES: dict = {}

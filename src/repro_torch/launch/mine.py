@@ -30,6 +30,8 @@ import os
 import sys
 from dataclasses import dataclass
 
+from .mesh import leaves_group
+
 
 @dataclass
 class MineResult:
@@ -144,6 +146,7 @@ def run(args, *, log=print) -> MineResult:
         verified=res.verified, group=group, ranks=ranks)
 
 
+@leaves_group
 def main(argv=None) -> int:
     from ..obs.cli import finish_tracing, start_tracing
 
@@ -154,10 +157,9 @@ def main(argv=None) -> int:
     finish_tracing(args, registry=res.metrics, tag="mine")
     rc = 1 if args.verify and not res.verified else 0
     if res.group is not None:
-        from .mesh import agreed_exit, close_group
+        from .mesh import agreed_exit
 
         rc = agreed_exit(res.group, rc)
-        close_group()
     return rc
 
 

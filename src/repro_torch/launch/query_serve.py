@@ -49,6 +49,8 @@ import argparse
 import json
 import sys
 
+from .mesh import leaves_group
+
 
 def build_requests(args, get_pattern):
     from ..core.pattern import Pattern
@@ -94,6 +96,7 @@ def build_requests(args, get_pattern):
     return reqs
 
 
+@leaves_group
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--dataset", default="tiny-er")
@@ -231,7 +234,7 @@ def main(argv=None):
                f"got {cache['hits']}")
         rc = rc or 2
     if group is not None:
-        from .mesh import agreed_exit, close_group, rank_lines
+        from .mesh import agreed_exit, rank_lines
 
         matchers = [e.matcher for e in engine.cache.entries()]
         _, lines = rank_lines(
@@ -240,7 +243,6 @@ def main(argv=None):
         for line in lines:
             print_(line)
         rc = agreed_exit(group, rc)
-        close_group()
     return rc
 
 

@@ -80,6 +80,11 @@ __all__ = [
 
 _HDR = struct.Struct(">I")
 MAX_FRAME = 16 << 20             # 16 MiB: a frame larger than this is a bug
+# seconds between a parked drive loop's keepalive calls, and the longest
+# a sharded gateway's rank 0 stays silent: well inside the group's
+# timeout (`launch.mesh.GROUP_TIMEOUT_S`), which bounds each follower's
+# wait for the next broadcast
+KEEPALIVE_S = 30.0
 
 
 def encode_frame(obj) -> bytes:
@@ -149,7 +154,7 @@ class GatewayRPCServer:
     `shutdown` frame (or `stop()`)."""
 
     def __init__(self, gateway, workload, *, host: str = "127.0.0.1",
-                 port: int = 0, get_pattern=None):
+                 port: int = 0, get_pattern=None, keepalive=None):
         self.gateway = gateway
         self.workload = workload
         self.engine = workload.engine
@@ -162,6 +167,10 @@ class GatewayRPCServer:
         self._stop_ev: asyncio.Event | None = None
         self.rounds = 0
         self.connections = 0
+        # called after every turn of the drive loop, and at least every
+        # KEEPALIVE_S seconds while it is parked (the sharded gateway's
+        # rank 0 keeps its followers' broadcast inside the group timeout)
+        self._keepalive = keepalive
 
     # ------------------------------------------------------------ lifecycle
     def stop(self) -> None:
@@ -193,6 +202,8 @@ class GatewayRPCServer:
     async def _drive(self) -> None:
         while not self._stop_ev.is_set():
             out = self.gateway.run_round()
+            if self._keepalive is not None:
+                self._keepalive()
             if out is not None:
                 self.rounds += 1
                 self._pulse()
@@ -204,8 +215,10 @@ class GatewayRPCServer:
             work = asyncio.ensure_future(self._work.wait())
             stop = asyncio.ensure_future(self._stop_ev.wait())
             try:
-                await asyncio.wait({work, stop},
-                                   return_when=asyncio.FIRST_COMPLETED)
+                await asyncio.wait(
+                    {work, stop}, return_when=asyncio.FIRST_COMPLETED,
+                    timeout=None if self._keepalive is None
+                    else KEEPALIVE_S)
             finally:
                 work.cancel()
                 stop.cancel()
@@ -329,6 +342,24 @@ class RPCClient:
         if not resp.get("ok"):
             raise RPCError(resp)
         return resp["ticket"]
+
+    def submit_many(self, specs) -> list[int]:
+        """Submit every spec in ONE write (the frames pipelined on this
+        connection), so the server admits them all before its next
+        round and same-class tickets coalesce; returns the ticket ids,
+        or raises the first rejection once every response is read."""
+        specs = list(specs)
+        self.sock.sendall(b"".join(
+            encode_frame({"op": "submit", "tenant": self.tenant, **spec})
+            for spec in specs))
+        resps = []
+        for _ in specs:
+            (n,) = _HDR.unpack(self._recv(_HDR.size))
+            resps.append(json.loads(self._recv(n).decode("utf-8")))
+        for resp in resps:
+            if not resp.get("ok"):
+                raise RPCError(resp)
+        return [resp["ticket"] for resp in resps]
 
     def poll(self, ticket: int) -> dict:
         return self.call({"op": "poll", "ticket": ticket})

@@ -1,0 +1,28 @@
+"""The port's examples run on the CPU (`--device cpu`) and print each
+count beside the oracle's, as the reference's examples do."""
+import importlib.util
+import pathlib
+import re
+
+import pytest
+
+EXAMPLES = pathlib.Path(__file__).resolve().parents[1] / "examples"
+
+
+def _run(name, capsys):
+    spec = importlib.util.spec_from_file_location(name, EXAMPLES / name)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mod.main(["--device", "cpu"])
+    return capsys.readouterr().out
+
+
+@pytest.mark.parametrize("name,want", [("torch_quickstart.py", 27_358),
+                                       ("torch_motif_counting_iep.py", 612)])
+def test_example_counts_equal_the_oracle(name, want, capsys):
+    out = _run(name, capsys)
+    counts = [int(c) for c in re.findall(r"(?m)(?:^|: +)count\s*=\s*(\d+)",
+                                         out)]
+    assert counts and set(counts) == {want}
+    assert f"oracle = {want}" in out
+    assert "count == oracle" in out

@@ -326,6 +326,7 @@ def get_pattern_ref(name):
 def test_torchrun_mine_verifies_and_prints_once(ranks):
     rc, text, err = ranks[2]["mine"]
     assert rc == 0, text + err
+    assert "still referenced" not in err     # the group was freed
     assert text.count("[mine] count=27358") == 1
     assert text.count("[mine] oracle=27358  OK") == 1
     assert text.count("[group] world=2 backend=gloo (ranks on the CPU)") == 1
@@ -336,6 +337,7 @@ def test_torchrun_mine_verifies_and_prints_once(ranks):
 def test_torchrun_query_serve_meets_its_hits(ranks):
     rc, text, err = ranks[2]["query_serve"]
     assert rc == 0, text + err
+    assert "still referenced" not in err
     assert text.count("verify=OK") == 4
     assert text.count("[serve] cache: 2 hits / 2 misses") == 1
     assert "resident on 2 ranks" in text
@@ -350,5 +352,6 @@ def test_torchrun_query_serve_failure_exits_nonzero_on_every_rank(ranks):
 def test_torchrun_distributed_example(ranks):
     rc, text, err = ranks[2]["example"]
     assert rc == 0, text + err
+    assert "still referenced" not in err
     assert "sharded       count = 87724" in text
     assert "oracle = 87724" in text
