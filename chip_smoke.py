@@ -59,7 +59,10 @@ run outside a checkout of this repository.  Phases, one line each:
     reference's tolerances (3e-2 / 2e-5), then in bf16 the qwen3-1.7b
     serving shape (q [64, 2048, 128] over k/v [32, 2048, 128], causal),
     48 query heads over one KV head at S = 1,024, a ragged
-    (6, 3, 1000, 777, 128) and a bidirectional (8, 8, 2048, 2048, 64);
+    (6, 3, 1000, 777, 128) and a bidirectional (8, 8, 2048, 2048, 64),
+    then the other LM families' prefill shapes (`FAMILY_K4`:
+    granite-moe causal hd 64 with G = 2, whisper causal and
+    bidirectional hd 64, jamba G = 4 and qwen2-vl G = 8, hd 128);
     each case launches the kernel the source's rule names (bf16: wgmma,
     fp32: scalar) and each bf16 case twice, bit-equal;
  8. qwen3-1.7b at full width and depth (random weights from seed 0)
@@ -77,7 +80,8 @@ run outside a checkout of this repository.  Phases, one line each:
     same tensors: the wgmma kernel, the scalar kernel it replaced (bf16),
     the plain version and PyTorch's `scaled_dot_product_attention` (the
     library yardstick; the port never calls it), with TFLOP/s and the
-    share of the card's bound.
+    share of the card's bound; then the same (no scalar kernel) at each
+    of the other families' shapes (`FAMILY_K4`).
 
 10. K2 and K3 (`csrc/membership.cu`: the padded kernel behind
     `ops.sorted_membership` / `ops.intersect_count`, which reads the
@@ -161,6 +165,26 @@ run outside a checkout of this repository.  Phases, one line each:
     kernels' launchers and the wrapper.  `examples/torch_quickstart.py`
     and `examples/torch_motif_counting_iep.py` run on the card, each
     count equal to the oracle's.
+17. the other LM families through `repro_torch.launch.serve.main` on
+    the card (`FAMILY_RUNS`; batch 4, a 2,048-token prompt, 16 tokens,
+    random weights from seed 0, bf16): granite-moe-1b-a400m at full
+    size (24 layers, 32 experts top-8), mamba2-370m and whisper-base at
+    full size, jamba-v0.1-52b at full width cut to 8 layers (one
+    superblock) and qwen2-vl-72b at full width cut to 4 (a single card
+    does not hold either whole).  Each must launch K4 once per
+    flash-eligible attention call of its prefill (24 / 0 / 18 / 1 / 4),
+    all of the wgmma kernel, and none in decode; its kernel-path prefill
+    logits must lie within phase 8's limits of the plain path's
+    (`flash=False`) on the same weights and prompts, printed beside the
+    plain path's distance from the same path with attention in fp32
+    (the rounding noise floor) and, for MoE layers, the tokens routed
+    to another expert set; its first greedy tokens must equal the
+    served run's (printed beside the plain path's, with the plain
+    path's top-2 gaps), and a second granite-moe prefill must be
+    bit-equal (logits and K/V).  Each prints its served
+    prefill s, decode ms/step and peak memory, and a torch.profiler
+    window over one prefill and 4 decode steps (busy share, top
+    kernels).
 
 Every count of phases 3–4 sets K1's launch counters to 0 just before it
 and reads them just after; a kernel-path count must launch exactly the
@@ -178,7 +202,9 @@ modes of the plans run (none for a memoized count), and K4's, around
 each prefill and decode call, 28 per prefill and none in decode; in
 phase 15 K1's, around the one-rank counts and around each rank's serve
 (the launchers' own records), exactly the plans' modes in every rank;
-in phase 16, each gateway rank's records, mask, count and signed.
+in phase 16, each gateway rank's records, mask, count and signed; in
+phase 17 K4's, around each family's prefill and decode calls and each
+prefill compared, the family's flash-eligible calls per prefill.
 
 Counts are integers and every comparison of phases 2–6 and 10–16 is
 exact (no tolerance).  The last two lines are the kernels record (K1's
@@ -187,8 +213,10 @@ version's time as `linear_ms`, K4 with its kernel `variant` and
 `tflops`; `front_door_launches`: K1's launches per mode in phase 14's
 cold serve and K4's per prefill of its graph + LM run;
 `sharded_launches`: K1's launches per rank in phase 15's query_serve
-runs; `gateway_sharded_launches`: the same in phase 16's gateway) and
-the device record (JSON).
+runs; `gateway_sharded_launches`: the same in phase 16's gateway; K4's
+`family_launches`: its launches per prefill of each phase 17 family,
+and `family_shapes`: phase 9's times at the families' shapes) and the
+device record (JSON).
 """
 from __future__ import annotations
 
@@ -1229,6 +1257,19 @@ SERVE_ROWS = (64, 32, 2048, 2048, 128)
 WGMMA_CASES = [(SERVE_ROWS, True), ((48, 1, 1024, 1024, 128), True),
                ((6, 3, 1000, 777, 128), True),
                ((8, 8, 2048, 2048, 64), False)]
+# The other LM families' prefill shapes at batch 4 and a 2,048-token
+# prompt (phase 17), with their mask and K4 launches per prefill:
+# granite-moe-1b-a400m (16 query heads over 8 KV heads, hd 64; G = 2),
+# whisper-base (8 over 8, hd 64: the decoder's self-attention causal,
+# the encoder's and the cross-attention bidirectional), jamba-v0.1-52b
+# (32 over 8, hd 128; G = 4; its one attention layer of the 8 served)
+# and qwen2-vl-72b (64 over 8, hd 128; G = 8; 4 layers served).
+FAMILY_K4 = [("granite-moe-1b-a400m", (64, 32, 2048, 2048, 64), True, 24),
+             ("whisper-base", (32, 32, 2048, 2048, 64), True, 6),
+             ("whisper-base", (32, 32, 2048, 2048, 64), False, 12),
+             ("jamba-v0.1-52b", (128, 32, 2048, 2048, 128), True, 1),
+             ("qwen2-vl-72b", (256, 32, 2048, 2048, 128), True, 4)]
+WGMMA_CASES += [(shape, causal) for _, shape, causal, _ in FAMILY_K4]
 # The reference's own tolerances (tests/test_flash_kernel.py:39).
 FLASH_ATOL = {"bfloat16": 3e-2, "float32": 2e-5}
 BF16_FLOPS = 989e12              # H100 SXM dense bf16 tensor cores
@@ -1621,23 +1662,25 @@ class PhaseLaunches:
         return False
 
 
-def check_launches_k4(what, rec, want) -> None:
+def check_launches_k4(what, rec, want, phase="phase 8") -> None:
     """`rec` (a PhaseLaunches) saw the phases and K4 launches `want`, and
-    every launch was of the wgmma kernel (bf16, hd 128)."""
-    log(f"phase 8: {what}: K4 launches per phase {rec.records}; per "
+    every launch was of the wgmma kernel (bf16, hd 64 or 128)."""
+    log(f"{phase}: {what}: K4 launches per phase {rec.records}; per "
         f"kernel {rec.variants}")
     check(rec.records == want, f"{what}: K4 launches {rec.records} != {want}")
     check(rec.variants == [{"scalar": 0, "wgmma": n} for _, n in want],
           f"{what}: K4 kernels {rec.variants}: the scalar one ran")
 
 
-def profile_serving(session, cfg, batch, card) -> None:
+def profile_serving(session, cfg, batch, card, decode=None, top=8,
+                    label="profile") -> None:
     """One kernel-path batch prefill and 4 decode steps of
-    `session`, each run once unprofiled (host clock, ending in a
-    synchronize) and once under torch.profiler.  Prints the device
+    `session` (`decode`: a callable running them, by default the
+    session's own next 4), each run once unprofiled (host clock, ending
+    in a synchronize) and once under torch.profiler.  Prints the device
     kernels' summed time against the unprofiled wall time (the busy
     share; the profiler's own overhead inflates its window) and the
-    kernels that took the most of it."""
+    `top` kernels that took the most of it."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1645,8 +1688,11 @@ def profile_serving(session, cfg, batch, card) -> None:
     from repro_torch.serve.serve_step import make_prefill
 
     prefill = make_prefill(cfg, DEVICE, q_chunk=0)
+    if decode is None:
+        def decode():
+            session.decode_steps(4)
     for what, fn in (("prefill", lambda: prefill(session._params, batch)),
-                     ("decode x4", lambda: session.decode_steps(4))):
+                     ("decode x4", decode)):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
@@ -1659,12 +1705,12 @@ def profile_serving(session, cfg, batch, card) -> None:
         kern = [e for e in prof.key_averages()
                 if e.device_type == DeviceType.CUDA]
         busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
-        log(f"profile {what}: device kernels {busy_ms:.3f} ms in "
+        log(f"{label} {what}: device kernels {busy_ms:.3f} ms in "
             f"{sum(e.count for e in kern)} launches; unprofiled wall "
             f"{wall_ms:.3f} ms; busy share {100 * busy_ms / wall_ms:.1f}% "
             f"on {card}")
-        for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:8]:
-            log(f"profile {what}:   {e.self_device_time_total / 1e3:9.3f} "
+        for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:top]:
+            log(f"{label} {what}:   {e.self_device_time_total / 1e3:9.3f} "
                 f"ms  x{e.count:<5d} {e.key[:80]}")
 
 
@@ -1761,6 +1807,58 @@ def serve_phase(card):
     return served_launches
 
 
+def k4_bound(shape, causal):
+    """(bound_ms, bound_by, FLOP, bytes) of one K4 launch: its matmul
+    FLOP (causal: the pairs on or below the diagonal only) over the
+    card's bf16 tensor-core peak, against q, k, v read once and o
+    written once over HBM's rate."""
+    BH, BK, Sq, Sk, hd = shape
+    pairs = Sq * (Sq + 1) / 2 if causal else Sq * Sk
+    flops = 4.0 * BH * hd * pairs
+    nbytes = 2 * (2 * BH * Sq * hd + 2 * BK * Sk * hd)
+    t_ops = flops / BF16_FLOPS * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    if t_ops >= t_bytes:
+        return t_ops, "operations", flops, nbytes
+    return t_bytes, "bytes", flops, nbytes
+
+
+def time_k4_case(shape, causal, seed, batch=4, iters=50):
+    """K4's wgmma kernel, its plain version and PyTorch's
+    `scaled_dot_product_attention` (the rows viewed as `batch` sequences
+    of BH / batch heads, `enable_gqa`) on the same bf16 tensors, with
+    CUDA events (3 warm-up launches, then `iters` timed; 5 for the plain
+    version), beside the bound.  Returns the tensors and the record."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.ref import flash_attention_ref
+
+    BH, BK, S, _, hd = shape
+    q, k, v = flash_inputs(shape, torch.bfloat16, seed)
+    got = flash_attention_cuda(q, k, v, causal=causal)
+    want = flash_attention_ref(q, k, v, causal=causal)
+    err = flash_err(got, want)
+    ms = time_ms(lambda: flash_attention_cuda(q, k, v, causal=causal),
+                 iters=iters)
+    plain_ms = time_ms(lambda: flash_attention_ref(q, k, v, causal=causal),
+                       iters=5)
+    q4, k4, v4 = (t.view(batch, t.shape[0] // batch, S, hd)
+                  for t in (q, k, v))
+    sdpa = F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal,
+                                          enable_gqa=True)
+    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=causal, enable_gqa=True), iters=iters)
+    bound_ms, bound_by, flops, nbytes = k4_bound(shape, causal)
+    rec = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "library_ms": library_ms,
+           "tflops": flops / ms / 1e9, "max_abs_err": err,
+           "sdpa_err": flash_err(got.view(sdpa.shape), sdpa),
+           "flops": flops, "bytes": nbytes}
+    return (q, k, v, want), rec
+
+
 def time_k4(card, errs) -> dict:
     """Phase 9: at the serving shape, in one process and on the same
     tensors: K4's wgmma kernel (the serving path), the scalar kernel's
@@ -1768,56 +1866,57 @@ def time_k4(card, errs) -> dict:
     PyTorch's `scaled_dot_product_attention` (the library yardstick; the
     port never calls it), with CUDA events (3 warm-up launches, then 50
     timed; 20 for the scalar kernel, 5 for the plain version), beside the
-    card's bound."""
-    import torch
-    import torch.nn.functional as F
-
+    card's bound; then the same for each of `FAMILY_K4`'s shapes (no
+    scalar kernel)."""
     from repro_torch.kernels.flash_attention import flash_attention_cuda
-    from repro_torch.kernels.ref import flash_attention_ref
 
     BH, BK, S, _, hd = SERVE_ROWS
-    q, k, v = flash_inputs(SERVE_ROWS, torch.bfloat16, 7)
-    got = flash_attention_cuda(q, k, v, causal=True)
+    (q, k, v, want), rec = time_k4_case(SERVE_ROWS, True, 7)
+    errs.append(rec["max_abs_err"])
     old = flash_attention_cuda(q, k, v, causal=True, variant="scalar")
-    want = flash_attention_ref(q, k, v, causal=True)
-    errs.append(flash_err(got, want))
     old_err = flash_err(old, want)
-    ms = time_ms(lambda: flash_attention_cuda(q, k, v, causal=True),
-                 iters=50)
     scalar_ms = time_ms(lambda: flash_attention_cuda(
         q, k, v, causal=True, variant="scalar"))
-    plain_ms = time_ms(lambda: flash_attention_ref(q, k, v, causal=True),
-                       iters=5)
-    B = 4
-    q4, k4, v4 = (t.view(B, t.shape[0] // B, S, hd) for t in (q, k, v))
-    sdpa = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
-                                          enable_gqa=True)
-    sdpa_err = flash_err(got.view(B, BH // B, S, hd), sdpa)
-    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        q4, k4, v4, is_causal=True, enable_gqa=True), iters=50)
-    flops = 4.0 * BH * hd * S * (S + 1) / 2          # causal pairs only
-    nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
-    t_ops = flops / BF16_FLOPS * 1e3
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    bound_ms, bound_by = ((t_ops, "operations") if t_ops >= t_bytes
-                          else (t_bytes, "bytes"))
-    tflops = flops / ms / 1e9
+    ms, library_ms, bound_ms = rec["ms"], rec["library_ms"], rec["bound_ms"]
     log(f"phase 9: K4 q [{BH}, {S}, {hd}] k/v [{BK}, {S}, {hd}] bf16 "
-        f"causal: wgmma ms={ms:.4f} ({tflops:.1f} TFLOP/s, "
+        f"causal: wgmma ms={ms:.4f} ({rec['tflops']:.1f} TFLOP/s, "
         f"{100 * bound_ms / ms:.1f}% of the bound) scalar_ms="
-        f"{scalar_ms:.4f} ({flops / scalar_ms / 1e9:.1f} TFLOP/s) "
-        f"plain_ms={plain_ms:.4f} sdpa_ms={library_ms:.4f} "
-        f"({flops / library_ms / 1e9:.1f} TFLOP/s) bound_ms={bound_ms:.4f} "
-        f"({bound_by}: {flops:.3e} FLOP, {nbytes / 1e9:.4f} GB); "
-        f"wgmma/sdpa {ms / library_ms:.2f}x, scalar/wgmma "
-        f"{scalar_ms / ms:.1f}x; max_abs vs plain wgmma={errs[-1]:.3e} "
-        f"scalar={old_err:.3e} sdpa={flash_err(sdpa, want.view(sdpa.shape)):.3e}"
-        f", wgmma vs sdpa {sdpa_err:.3e} on {card}")
+        f"{scalar_ms:.4f} ({rec['flops'] / scalar_ms / 1e9:.1f} TFLOP/s) "
+        f"plain_ms={rec['plain_ms']:.4f} sdpa_ms={library_ms:.4f} "
+        f"({rec['flops'] / library_ms / 1e9:.1f} TFLOP/s) bound_ms="
+        f"{bound_ms:.4f} ({rec['bound_by']}: {rec['flops']:.3e} FLOP, "
+        f"{rec['bytes'] / 1e9:.4f} GB); wgmma/sdpa {ms / library_ms:.2f}x, "
+        f"scalar/wgmma {scalar_ms / ms:.1f}x; max_abs vs plain wgmma="
+        f"{errs[-1]:.3e} scalar={old_err:.3e}, wgmma vs sdpa "
+        f"{rec['sdpa_err']:.3e} on {card}")
     check(old_err <= FLASH_ATOL["bfloat16"],
           f"scalar K4 max_abs_err {old_err:.3e}")
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms,
-            "variant": "wgmma", "tflops": tflops}
+    families = []
+    for i, (arch, shape, causal, per_prefill) in enumerate(FAMILY_K4):
+        _, frec = time_k4_case(shape, causal, 70 + i)
+        errs.append(frec["max_abs_err"])
+        check(frec["max_abs_err"] <= FLASH_ATOL["bfloat16"],
+              f"K4 {arch} {shape}: max_abs_err {frec['max_abs_err']:.3e}")
+        log(f"phase 9: K4 {arch} q [{shape[0]}, {shape[2]}, {shape[4]}] "
+            f"k/v [{shape[1]}, {shape[3]}, {shape[4]}] bf16 "
+            f"{'causal' if causal else 'bidir'} ({per_prefill} per prefill)"
+            f": wgmma ms={frec['ms']:.4f} ({frec['tflops']:.1f} TFLOP/s, "
+            f"{100 * frec['bound_ms'] / frec['ms']:.1f}% of the bound) "
+            f"plain_ms={frec['plain_ms']:.4f} sdpa_ms="
+            f"{frec['library_ms']:.4f} bound_ms={frec['bound_ms']:.4f} "
+            f"({frec['bound_by']}); wgmma/sdpa "
+            f"{frec['ms'] / frec['library_ms']:.2f}x; max_abs vs plain "
+            f"{frec['max_abs_err']:.3e}, vs sdpa {frec['sdpa_err']:.3e} "
+            f"on {card}")
+        families.append({"arch": arch, "shape": list(shape),
+                         "causal": causal, "per_prefill": per_prefill,
+                         **{key: frec[key] for key in (
+                             "ms", "plain_ms", "bound_ms", "bound_by",
+                             "library_ms", "tflops", "max_abs_err")}})
+    return {"ms": ms, "plain_ms": rec["plain_ms"], "bound_ms": bound_ms,
+            "bound_by": rec["bound_by"], "library_ms": library_ms,
+            "variant": "wgmma", "tflops": rec["tflops"],
+            "family_shapes": families}
 
 
 def lm_phases(card) -> list:
@@ -3296,6 +3395,219 @@ def gateway_sharded_phase(card) -> dict:
             for run, rec in runs.items()}
 
 
+# ------------------------------------------------------------ phase 17 --
+# The other LM families, each through `launch.serve` at batch 4, a
+# 2,048-token prompt and 16 generated tokens (random weights from seed
+# 0, bf16): (arch, decoder layers served (0: all), K4 launches per
+# prefill = its flash-eligible attention calls).  jamba-v0.1-52b is cut
+# to 8 layers (one superblock: 7 Mamba + 1 attention, MoE in every odd
+# layer; ~13.3e9 parameters, 26.5 GB in bf16) and qwen2-vl-72b to 4
+# (~6.0e9, 12 GB): the whole models do not fit one card.
+FAMILY_RUNS = [("granite-moe-1b-a400m", 0, 24), ("mamba2-370m", 0, 0),
+               ("whisper-base", 0, 18), ("jamba-v0.1-52b", 8, 1),
+               ("qwen2-vl-72b", 4, 4)]
+FAMILY_PROMPT = 2048
+FAMILY_ARGV = ["--batch", "4", "--prompt-len", str(FAMILY_PROMPT),
+               "--gen", "16"]
+# Kernel-path vs plain-path prefill logits (both bf16) are held to phase
+# 8's limits, PREFILL_MAX_ABS and PREFILL_MEAN_ABS.  The two paths round
+# attention differently (the plain path rounds q·k and the softmax
+# weights to bf16, K4 keeps them in fp32), and MoE routing amplifies
+# that: a token whose k-th and (k+1)-th experts are nearly tied takes
+# another expert.  The noise floor is measured beside each comparison:
+# the plain path against the same path with attention in fp32
+# (`fp32_attention`), which rounds no better or worse than K4 does.
+
+
+@contextlib.contextmanager
+def fp32_attention():
+    """The plain attention path (`layers._sdpa`) computing in fp32 on
+    q, k, v widened from bf16, its output cast back: the yardstick of
+    attention rounding noise in phase 17."""
+    from repro_torch.models import layers
+
+    plain = layers._sdpa
+
+    def wide(q, k, v, *, causal, q_offset=0):
+        return plain(q.float(), k.float(), v.float(), causal=causal,
+                     q_offset=q_offset).to(q.dtype)
+
+    layers._sdpa = wide
+    try:
+        yield
+    finally:
+        layers._sdpa = plain
+
+
+@contextlib.contextmanager
+def recording_routes(routes: list):
+    """Appends each MoE layer's chosen experts ([N, k], sorted per
+    token) to `routes` while it is open."""
+    from repro_torch.models import moe
+
+    route = moe._route
+
+    def spy(p, x, cfg, dtype):
+        w, idx, aux = route(p, x, cfg, dtype)
+        routes.append(idx.sort(dim=1).values)
+        return w, idx, aux
+
+    moe._route = spy
+    try:
+        yield
+    finally:
+        moe._route = route
+
+
+def family_run(card, arch, layers, want) -> dict:
+    """One family through `launch.serve.main` on the card: K4 launches
+    per prefill (`want`; none in decode), tokens in range; then the
+    kernel-path prefill against the plain path (`flash=False`) on the
+    session's weights and prompts within phase 8's limits (beside the
+    plain path against `fp32_attention`, and the tokens each MoE layer
+    routed otherwise), the kernel path's first greedy tokens equal to
+    the served run's (and
+    beside the plain path's, with the plain path's top-2 gaps: a gap
+    below 2·max_abs lets a row's first token differ); for granite-moe a
+    second kernel-path prefill, bit-equal.  Then a profile window over
+    one prefill and 4 decode steps (`profile_serving`)."""
+    import gc
+
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.serve_step import make_prefill
+    from repro_torch.serve.session import fake_prompts
+
+    gc.collect()                  # the previous family's weights
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    argv = ["--arch", arch] + FAMILY_ARGV + ["--device", DEVICE]
+    if layers:
+        argv += ["--layers", str(layers)]
+    t0 = time.perf_counter()
+    with PhaseLaunches() as rec:
+        rc = serve.main(argv)
+    wall = time.perf_counter() - t0
+    check(rc == 0, f"serve.main {arch} exited {rc}")
+    check_launches_k4(f"serve.main {' '.join(argv)}", rec,
+                      [("prefill", want), ("decode", 0)], phase="phase 17")
+    session = rec.sessions[0]
+    cfg = session.cfg
+    check(T.flash_calls(cfg) == want and
+          session.metrics()["flash_launches"] == want,
+          f"{arch}: {T.flash_calls(cfg)} flash-eligible calls, session "
+          f"counted {session.metrics()['flash_launches']}, not {want}")
+    m = session.metrics()
+    out = session.tokens_out()
+    check(out.shape == (4, 17) and out.min() >= 0 and out.max() < cfg.vocab,
+          f"{arch}: served tokens {out.shape} out of range")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    batch = fake_prompts(cfg, 4, FAMILY_PROMPT, seed=0, device=DEVICE)
+    runs, routes = {}, {}
+    for name, flash in (("kernel", True), ("plain", False),
+                        ("fp32 attention", False), ("again", True)):
+        if name == "again" and cfg.family != "moe":
+            continue
+        prefill = make_prefill(cfg, DEVICE, q_chunk=0, flash=flash)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        routes[name] = []
+        wide = (fp32_attention() if name == "fp32 attention"
+                else contextlib.nullcontext())
+        t1 = time.perf_counter()
+        with wide, recording_routes(routes[name]):
+            logits, cache = prefill(session._params, batch)
+        torch.cuda.synchronize()
+        runs[name] = (logits, cache, ops.launches["flash"],
+                      time.perf_counter() - t1)
+    kl, kc, kn, k_s = runs["kernel"]
+    pl, _, pn, p_s = runs["plain"]
+    wl, _, wn, _ = runs["fp32 attention"]
+    check((kn, pn, wn) == (want, 0, 0),
+          f"{arch}: prefill launches kernel={kn} plain={pn} fp32={wn}")
+    check(bool(torch.isfinite(kl).all()), f"{arch}: logits not finite")
+
+    def apart(a, b):
+        d = (a - b).abs()
+        return float(d.max()), float(d.mean())
+
+    d_max, d_mean = apart(kl, pl)
+    f_max, f_mean = apart(pl, wl)
+    moved = ""
+    if routes["kernel"]:
+        flips = [int((a != b).any(dim=1).sum())
+                 for a, b in zip(routes["kernel"], routes["plain"])]
+        moved = (f"; tokens routed to another expert set, kernel vs plain "
+                 f"path, per MoE layer {flips} of "
+                 f"{routes['kernel'][0].shape[0]}")
+    k_tok = kl.argmax(-1).cpu().numpy()
+    p_tok = pl.argmax(-1).cpu().numpy()
+    # the plain path's gap between its two largest logits per row: a
+    # row whose gap is below 2·max_abs may take another first token on
+    # the kernel path without either path being wrong
+    gap = pl.topk(2, dim=-1).values
+    gap = (gap[:, 0] - gap[:, 1]).cpu().numpy()
+    same = ""
+    if "again" in runs:
+        al, ac, _, _ = runs["again"]
+        bit = torch.equal(al, kl) and all(
+            torch.equal(a, b) for a, b in zip(
+                (t for lc in ac["layers"] for t in lc.values()),
+                (t for lc in kc["layers"] for t in lc.values())))
+        check(bit, f"{arch}: two kernel-path prefills differ")
+        same = "; a second kernel-path prefill bit-equal (logits, K/V)"
+    log(f"phase 17: {arch} ({cfg.n_layers} layers, "
+        f"{cfg.param_count() / 1e9:.3f}e9 params): served prefill "
+        f"{m['prefill_seconds']:.4f} s, decode {m['ms_per_step']:.3f} "
+        f"ms/step ({m['decode_tok_s']:.1f} tok/s), peak memory {peak:.2f} "
+        f"GiB, serve.main wall {wall:.1f} s; warm prefill kernel path "
+        f"{k_s:.4f} s, plain path {p_s:.4f} s; logits [4, {cfg.vocab}] "
+        f"kernel vs plain max_abs={d_max:.4f} mean_abs={d_mean:.5f} "
+        f"(limits {PREFILL_MAX_ABS} / {PREFILL_MEAN_ABS}), plain vs fp32 "
+        f"attention max_abs={f_max:.4f} mean_abs={f_mean:.5f}, logit std "
+        f"{float(pl.std()):.4f}{moved}; first tokens kernel "
+        f"{k_tok.tolist()} plain {p_tok.tolist()} (top-2 gaps "
+        f"{', '.join(f'{g:.4f}' for g in gap)}) served "
+        f"{out[:, 0].tolist()}{same} on {card}")
+    check(d_max <= PREFILL_MAX_ABS and d_mean <= PREFILL_MEAN_ABS,
+          f"{arch}: kernel vs plain prefill logits: max {d_max} "
+          f"mean {d_mean}")
+    check((k_tok == out[:, 0]).all(),
+          f"{arch}: kernel-path first tokens differ from the served run's")
+    del runs
+
+    # where the time goes: a prefill and 4 decode steps profiled (the
+    # served session has finished: the steps rewrite cache cells
+    # 2,048-2,051 with its last token)
+    tok = session._tokens
+    start = torch.full((4,), FAMILY_PROMPT, dtype=torch.long, device=DEVICE)
+
+    def decode4():
+        for i in range(4):
+            session._decode(session._params, tok, session._cache, start + i)
+
+    profile_serving(session, cfg, batch, card, decode=decode4, top=5,
+                    label=f"phase 17: {arch} profile")
+    return {"launches": want, "prefill_s": m["prefill_seconds"],
+            "decode_ms": m["ms_per_step"], "peak_gib": peak,
+            "max_abs": d_max}
+
+
+def family_phase(card) -> dict:
+    """Phase 17: every other LM family on the card (`FAMILY_RUNS`).
+    Returns K4's launches per prefill by arch."""
+    t_phase = time.perf_counter()
+    launches = {}
+    for arch, layers, want in FAMILY_RUNS:
+        launches[arch] = family_run(card, arch, layers, want)["launches"]
+    log(f"phase 17: LM families in {time.perf_counter() - t_phase:.1f}s")
+    return launches
+
+
 def ptxas_summary(log_text: str) -> list:
     """(kernel, registers, spill store bytes, spill load bytes) for each
     entry function of an `nvcc -Xptxas -v` log; names demangled by
@@ -3396,6 +3708,10 @@ def main() -> int:
             k["gateway_sharded_launches"] = {
                 run: [r[mode] for r in ranks]
                 for run, ranks in gateway_sharded.items()}
+    family = family_phase(card)
+    for k in kernels:
+        if k["name"] == "flash_attention":
+            k["family_launches"] = family
     log(f"done in {time.perf_counter() - t_all:.1f}s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

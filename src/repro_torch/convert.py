@@ -47,15 +47,18 @@ def plan_from_reference(d: dict) -> MatchingPlan:
 
 
 def lm_params_from_reference(tree: dict, *, device="cpu") -> dict:
-    """The port's dense-LM params (`models/transformer.py` layout) from
-    the reference's params pytree with numpy leaves.
+    """The port's LM params (`models/transformer.py` layout) from the
+    reference's params pytree with numpy leaves, for every family.
 
     The reference stacks its layers for `lax.scan`: every leaf under
     `blocks/l<j>/...` has a leading [n_blocks] axis (block b, position j
-    is layer b·block_len + j).  The port keeps one dict per layer, so
-    each stacked leaf is split along that axis; the rest (embed,
-    final_norm, lm_head) maps one to one.  Leaves become fp32 tensors
-    on `device`."""
+    is layer b·block_len + j; jamba's superblock holds 8 layers), and
+    every leaf under `encoder` / `cross` (encdec) a leading [enc_layers]
+    / [n_layers] axis.  The port keeps one dict per layer, so each
+    stacked leaf is split along that axis (an MoE leaf [n_blocks, E, d,
+    ff] becomes [E, d, ff] per layer); the rest (embed, final_norm,
+    lm_head, enc_final_norm) maps one to one.  Leaves become fp32
+    tensors on `device`."""
     def leaf(a):
         return torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
 
@@ -64,10 +67,19 @@ def lm_params_from_reference(tree: dict, *, device="cpu") -> dict:
             return {k: walk(v, pick) for k, v in node.items()}
         return leaf(node if pick is None else np.asarray(node)[pick])
 
+    def depth(node):
+        while isinstance(node, dict):
+            node = next(iter(node.values()))
+        return np.asarray(node).shape[0]
+
     blocks = tree["blocks"]
     blk = len(blocks)                   # layers per block: l0 .. l<blk-1>
-    n_blocks = np.asarray(blocks["l0"]["norm1"]["scale"]).shape[0]
-    out = {k: walk(v) for k, v in tree.items() if k != "blocks"}
+    n_blocks = depth(blocks["l0"])
+    out = {k: walk(v) for k, v in tree.items()
+           if k not in ("blocks", "encoder", "cross")}
     out["layers"] = [walk(blocks[f"l{i % blk}"], i // blk)
                      for i in range(n_blocks * blk)]
+    for k in ("encoder", "cross"):
+        if k in tree:
+            out[k] = [walk(tree[k], i) for i in range(depth(tree[k]))]
     return out

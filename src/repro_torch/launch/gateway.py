@@ -6,8 +6,9 @@
 
 Port of `repro/launch/gateway.py`: `--device` (default cuda, which
 raises without a card) replaces `--model-axis` / `--single-device`, and
-the LM tenant is the port's `LMSession` (`--full-lm`: the full config,
-prefill attention through kernel K4 on a card).  Builds ONE Gateway
+the LM tenant is the port's `LMSession` for any `--arch` of
+`repro_torch.configs.ARCHS` (`--full-lm`: the full config, prefill
+attention through kernel K4 on a card).  Builds ONE Gateway
 that owns the process's device and co-schedules two tenants on it: a `GraphQueryWorkload` (the pattern-query engine's
 ticket queue — same request format and synthetic workloads as
 `launch/query_serve.py`, and bit-identical counts: only the scheduling

@@ -5,11 +5,15 @@
 
 Counterpart of `repro/launch/serve.py` on one device: a thin client of
 the serving Gateway (`repro_torch.serve.gateway`) that builds one
-`LMSession` and schedules it as the Gateway's sole workload.  Runs on
-the card by default (`--device cuda`, which raises without one);
-`--device cpu --smoke` runs the reduced same-family config on the CPU.
-Prefill attention goes through kernel K4 on a card; the line before
-the sample reports the session's K4 launches.
+`LMSession` and schedules it as the Gateway's sole workload.  Every
+configuration of `repro_torch.configs.ARCHS` serves (dense, moe, ssm,
+hybrid, encdec, vlm); `--layers N` cuts the decoder to N layers for a
+model that does not fit one card whole (jamba-v0.1-52b at 8, one
+superblock; qwen2-vl-72b at 4).  Runs on the card by default
+(`--device cuda`, which raises without one); `--device cpu --smoke`
+runs the reduced same-family config on the CPU.  Prefill attention goes
+through kernel K4 on a card; the line before the sample reports the
+session's K4 launches.
 
 Fault tolerance mirrors the reference: the decode loop checkpoints its
 cache + tokens every --ckpt-every steps, and `--resume` reloads the
@@ -30,6 +34,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--max-seq", type=int, default=0,
                     help="cache size (default prompt+gen)")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="decoder layers (default: the config's)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--ckpt-every", type=int, default=0)
@@ -54,7 +60,7 @@ def main(argv=None) -> int:
     session = LMSession(
         args.arch, smoke=args.smoke, batch=args.batch,
         prompt_len=args.prompt_len, gen=args.gen, max_seq=args.max_seq,
-        device=args.device, seed=args.seed,
+        device=args.device, seed=args.seed, layers=args.layers,
         ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
     )
     gw = Gateway(device=session.device)

@@ -1,13 +1,15 @@
-"""Dense neural building blocks (plain PyTorch; params are nested dicts).
+"""Neural building blocks (plain PyTorch; params are nested dicts).
 
-Counterpart of `repro/models/layers.py`, dense parts only:
+Counterpart of `repro/models/layers.py`:
 
  * params are fp32 masters; `cast` converts activations/weights to the
    compute dtype at use sites (mixed precision);
  * norms and RoPE compute in fp32 and cast back to the input's dtype;
- * attention is grouped-query: q [B, S, H, hd] over k/v [B, S, K, hd].
+ * attention is grouped-query: q [B, S, H, hd] over k/v [B, S, K, hd];
+   positions are RoPE's [B, S] or, for M-RoPE (qwen2-vl), `positions3`
+   [B, 3, S] (t, h, w components).
 
-Self-attention in prefill goes through kernel K4
+Self- and cross-attention in prefill go through kernel K4
 (`kernels.ops.flash_attention`) under the reference's dispatch rule
 (`sdpa_any`); decode attention is plain PyTorch, as it is plain XLA in
 the reference.  The projections, the MLP and the lm_head are
@@ -72,11 +74,47 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     hd = x.shape[-1]
     freqs = rope_freqs(hd, theta, x.device)                  # [hd/2]
     ang = positions[..., None].float() * freqs               # [..., S, hd/2]
-    ang = ang[..., None, :]                                  # [..., S, 1, hd/2]
+    return _rotate(x, ang[..., None, :])                     # [..., S, 1, hd/2]
+
+
+def _rotate(x: torch.Tensor, ang: torch.Tensor) -> torch.Tensor:
+    """x's two halves of hd rotated by the angles `ang` (broadcast over
+    the heads), in fp32, cast back to x's dtype."""
     cos, sin = torch.cos(ang), torch.sin(ang)
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
+                sections=(16, 24, 24)) -> torch.Tensor:
+    """Qwen2-VL M-RoPE: x [..., S, H, hd]; positions3 [..., 3, S] (t, h,
+    w components); the hd/2 frequency slots are split across the three
+    components by `sections` (sum = hd/2)."""
+    hd = x.shape[-1]
+    assert sum(sections) == hd // 2, (sections, hd)
+    freqs = rope_freqs(hd, theta, x.device)                  # [hd/2]
+    comp = torch.cat([torch.full((s,), i, dtype=torch.long, device=x.device)
+                      for i, s in enumerate(sections)])      # [hd/2]
+    pos = positions3.movedim(-2, -1)[..., comp]              # [..., S, hd/2]
+    return _rotate(x, (pos.float() * freqs)[..., None, :])
+
+
+def _mrope_sections(hd: int):
+    """qwen2-vl's (16, 24, 24) for hd = 128, scaled otherwise."""
+    base = (16, 24, 24)
+    if hd // 2 == sum(base):
+        return base
+    unit = (hd // 2) // 4
+    return (unit, (hd // 2 - unit) // 2, hd // 2 - unit - (hd // 2 - unit) // 2)
+
+
+def sinusoidal_positions(seq: int, d: int, device=None) -> torch.Tensor:
+    """[seq, d] fp32: sines over the first d/2 columns, cosines after."""
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(0, d, 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / torch.pow(10000.0, dim / d)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 # ------------------------------------------------------------------ MLP
@@ -113,7 +151,7 @@ def _split_heads(x: torch.Tensor, n: int, hd: int) -> torch.Tensor:
     return x.reshape(x.shape[:-1] + (n, hd))
 
 
-def _qkv(p, x, cfg, dtype, positions=None):
+def _qkv(p, x, cfg, dtype, positions=None, positions3=None):
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = _split_heads(dense(p["wq"], x, dtype), H, hd)
     k = _split_heads(dense(p["wk"], x, dtype), K, hd)
@@ -121,7 +159,10 @@ def _qkv(p, x, cfg, dtype, positions=None):
     if cfg.qk_norm:
         q = head_rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = head_rms_norm(k, p["k_norm"], cfg.norm_eps)
-    if positions is not None:
+    if cfg.mrope and positions3 is not None:
+        q = apply_mrope(q, positions3, cfg.rope_theta, _mrope_sections(hd))
+        k = apply_mrope(k, positions3, cfg.rope_theta, _mrope_sections(hd))
+    elif positions is not None:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
@@ -179,18 +220,41 @@ def sdpa_any(q, k, v, *, causal: bool, q_chunk: int = 0,
 
 
 def attention(p: Params, x, cfg, dtype, *, causal=True, positions=None,
-              q_chunk: int = 0, flash: bool = False):
-    q, k, v = _qkv(p, x, cfg, dtype, positions)
+              positions3=None, q_chunk: int = 0, flash: bool = False):
+    q, k, v = _qkv(p, x, cfg, dtype, positions, positions3)
     out = sdpa_any(q, k, v, causal=causal, q_chunk=q_chunk, flash=flash)
     B, S = x.shape[:2]
     return dense(p["wo"], out.reshape(B, S, -1), dtype)
 
 
+def cross_attention(p: Params, x, enc_kv, cfg, dtype, *, q_chunk: int = 0,
+                    flash: bool = False):
+    """x [B, Sq, d]; enc_kv = (k, v) precomputed from the encoder output
+    (`enc_kv`).  Bidirectional, no RoPE; K4 under the same rule as
+    self-attention (Sq == Sk, a multiple of 512)."""
+    H, hd = cfg.n_heads, cfg.head_dim
+    q = _split_heads(dense(p["wq"], x, dtype), H, hd)
+    k, v = enc_kv
+    out = sdpa_any(q, k, v, causal=False, q_chunk=q_chunk, flash=flash)
+    B, S = x.shape[:2]
+    return dense(p["wo"], out.reshape(B, S, -1), dtype)
+
+
+def enc_kv(p: Params, enc_out, cfg, dtype):
+    """Cross-attention K and V [B, S_enc, K, hd] of the encoder output."""
+    K, hd = cfg.n_kv_heads, cfg.head_dim
+    k = _split_heads(dense(p["wk"], enc_out, dtype), K, hd)
+    v = _split_heads(dense(p["wv"], enc_out, dtype), K, hd)
+    return k, v
+
+
 # --------------------------------------------------- decode (KV cache) ----
-def attention_decode(p: Params, x, cache_k, cache_v, pos, cfg, dtype):
+def attention_decode(p: Params, x, cache_k, cache_v, pos, cfg, dtype,
+                     positions3=None):
     """One-token decode: x [B,1,d]; cache [B,S,K,hd]; pos an int OR a
     per-row ``[B]`` int tensor (continuous batching: each slot of the
-    padded batch sits at its own sequence position).
+    padded batch sits at its own sequence position).  Under M-RoPE
+    without `positions3` every component takes the position.
 
     Writes this token's K/V into the caches IN PLACE (the reference
     returns updated copies; its caller donates the old ones) and returns
@@ -202,7 +266,9 @@ def attention_decode(p: Params, x, cache_k, cache_v, pos, cfg, dtype):
     pos = torch.as_tensor(pos, dtype=torch.long, device=x.device)
     per_row = pos.dim() == 1
     posv = pos[:, None] if per_row else pos.expand(B, 1)
-    q, k, v = _qkv(p, x, cfg, dtype, posv)
+    if cfg.mrope and positions3 is None:
+        positions3 = posv[:, None, :].expand(B, 3, 1)
+    q, k, v = _qkv(p, x, cfg, dtype, posv, positions3)
     at = posv[:, 0].clamp(0, S - 1)
     rows = torch.arange(B, device=x.device)
     cache_k[rows, at] = k[:, 0].to(cache_k.dtype)

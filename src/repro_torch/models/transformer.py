@@ -1,22 +1,31 @@
-"""Model assembly, dense family (plain PyTorch).
+"""Model assembly for every LM family (plain PyTorch around kernel K4).
 
-Counterpart of `repro/models/transformer.py` for `family == "dense"`
-(qwen3, minitron, granite-34b).  The reference stacks homogeneous layers
-for `lax.scan`; the port keeps one parameter dict per layer in
-`params["layers"]` and loops over them.
+Counterpart of `repro/models/transformer.py` for the serving path of
+all six families: dense (qwen3, minitron, granite-34b), moe (granite-moe,
+moonshot), ssm (mamba2), hybrid (jamba: Mamba and attention layers, MoE
+every other layer), encdec (whisper: a bidirectional encoder over frame
+embeddings, decoder layers with cross-attention) and vlm (qwen2-vl:
+patch embeddings in, M-RoPE positions).  The reference stacks
+repeating superblocks for `lax.scan`; the port keeps one parameter dict
+per layer in `params["layers"]` (and `params["encoder"]`,
+`params["cross"]` for encdec) and loops over them.
 
 Public API:
-    init(cfg, seed, device)                     -> params
+    init(cfg, seed, device, cast=None)          -> params
     prefill_fn(cfg)(params, batch)              -> (last_logits, cache)
     decode_fn(cfg)(params, tokens, cache, pos)  -> (logits, cache)
     init_cache(cfg, batch, max_seq)             -> cache
 
-Batches: prefill {"tokens" [B, S] int}; decode tokens [B, 1] int.
-Caches: {"layers": [{"k": [B, S, K, hd], "v": ...}, ...]}.
+Batches: prefill {"tokens" [B, S] int} plus "enc_embeds" [B, S, d]
+(encdec), or {"embeds" [B, S, d], "positions3" [B, 3, S]} (vlm); decode
+tokens [B, 1] int.  Caches: {"layers": [per layer {"k", "v"} [B, S, K,
+hd] (attention) or {"h" [B, nh, hd, ds], "conv" [B, cw-1, conv_dim]}
+(Mamba, fp32)]}, and for encdec "cross_kv": [per decoder layer {"k",
+"v"}].  The enc-dec prefill returns only "cross_kv", as the reference's
+does: the decoder's self-attention cache stays zero.
 
-Other families (moe, ssm, hybrid, encdec, vlm) raise NotImplementedError:
-they need `models/moe.py` and `models/mamba2.py`, planned in ROADMAP.md
-queue 1 (the remaining LM families).
+Prefill routes MoE layers through `moe_sorted` (capacity drops) and
+decode through `moe_dense` (dropless), as the reference does.
 """
 from __future__ import annotations
 
@@ -27,18 +36,12 @@ import torch
 from . import layers as L
 from .layers import (Params, cast, dense, init_dense, init_mlp, init_rmsnorm,
                      rms_norm, swiglu_mlp)
-
-_PLANNED = ("the {family} family is not ported yet (ROADMAP.md queue 1: "
-            "the remaining LM families)")
+from .mamba2 import init_mamba, init_mamba_state, mamba_block, mamba_decode_step
+from .moe import init_moe, moe_dense, moe_sorted
 
 
 def _dtype(cfg) -> torch.dtype:
     return getattr(torch, cfg.dtype)
-
-
-def _require_dense(cfg) -> None:
-    if cfg.family != "dense":
-        raise NotImplementedError(_PLANNED.format(family=cfg.family))
 
 
 # ===========================================================================
@@ -73,7 +76,8 @@ def mlp_kinds(cfg) -> list[str]:
 
 
 def _block_len(cfg) -> int:
-    """Layers per repeating superblock (1 for homogeneous stacks)."""
+    """Layers per repeating superblock (1 for homogeneous stacks): the
+    reference's scan unit, which `convert` unstacks."""
     kinds = list(zip(layer_kinds(cfg), mlp_kinds(cfg)))
     for blk in range(1, cfg.n_layers + 1):
         if cfg.n_layers % blk:
@@ -87,34 +91,75 @@ def _block_len(cfg) -> int:
     return cfg.n_layers
 
 
+def _kinds(cfg) -> list[tuple[str, str]]:
+    return list(zip(layer_kinds(cfg), mlp_kinds(cfg)))
+
+
+def flash_calls(cfg) -> int:
+    """Attention calls per prefill that K4 takes when the prompt length
+    is a multiple of 512 and hd ≤ 128: every decoder attention layer,
+    plus the encoder's layers and the cross-attentions (encdec)."""
+    n = layer_kinds(cfg).count("attn")
+    if cfg.family == "encdec":
+        n += cfg.enc_layers + cfg.n_layers
+    return n
+
+
 # ===========================================================================
 # init
 # ===========================================================================
-def init(cfg, seed: int = 0, device="cpu") -> Params:
+def init(cfg, seed: int = 0, device="cpu", cast=None) -> Params:
     """fp32 master weights from `seed`: embed normal·0.02, every dense
-    projection normal/√d_in, lm_head normal·0.02, norms at 1.  Drawn
-    from one `torch.Generator` on `device` in a fixed order (embed,
-    lm_head, then each layer's attention and MLP), so the same seed on
-    the same device type gives the same weights.  They differ from
-    `jax.random`'s: tests carry the reference's weights across with
-    `convert.lm_params_from_reference` instead."""
-    _require_dense(cfg)
+    projection normal/√d_in, lm_head normal·0.02, norms at 1, the MoE
+    and Mamba leaves as `init_moe` / `init_mamba` draw them.  Drawn from
+    one `torch.Generator` on `device` in a fixed order — embed, lm_head,
+    each decoder layer's mixer then MLP, then (encdec) each encoder
+    layer's attention and MLP and each cross-attention — so the same
+    seed on the same device type gives the same weights.  They differ
+    from `jax.random`'s: tests carry the reference's weights across with
+    `convert.lm_params_from_reference` instead.
+
+    `cast`, when given, maps each part (the embedding, the lm_head, one
+    layer) right after it is drawn, so only one part's fp32 masters are
+    alive at a time: serving passes `cast_params_for_serving`, and the
+    result equals casting the whole fp32 tree."""
     device = torch.device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
+    put = cast if cast is not None else (lambda part: part)
+    d = cfg.d_model
     params: Params = {
-        "embed": {"w": torch.randn((cfg.vocab, cfg.d_model), generator=gen,
-                                   device=device).mul_(0.02)},
-        "final_norm": init_rmsnorm(cfg.d_model, device),
+        "embed": put({"w": torch.randn((cfg.vocab, d), generator=gen,
+                                       device=device).mul_(0.02)}),
+        "final_norm": init_rmsnorm(d, device),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = init_dense(gen, cfg.d_model, cfg.vocab,
-                                       scale=0.02, device=device)
-    params["layers"] = [
-        {"norm1": init_rmsnorm(cfg.d_model, device),
-         "attn": L.init_attention(gen, cfg, device),
-         "norm2": init_rmsnorm(cfg.d_model, device),
-         "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, device)}
-        for _ in range(cfg.n_layers)]
+        params["lm_head"] = put(init_dense(gen, d, cfg.vocab, scale=0.02,
+                                           device=device))
+    layers = []
+    for mix, mlp in _kinds(cfg):
+        lp = {"norm1": init_rmsnorm(d, device)}
+        if mix == "attn":
+            lp["attn"] = L.init_attention(gen, cfg, device)
+        else:
+            lp["ssm"] = init_mamba(gen, cfg, device)
+        if mlp != "none":
+            lp["norm2"] = init_rmsnorm(d, device)
+            lp["mlp"] = (init_mlp(gen, d, cfg.d_ff, device) if mlp == "dense"
+                         else init_moe(gen, cfg, device))
+        layers.append(put(lp))
+    params["layers"] = layers
+    if cfg.family == "encdec":
+        params["encoder"] = [
+            put({"norm1": init_rmsnorm(d, device),
+                 "attn": L.init_attention(gen, cfg, device),
+                 "norm2": init_rmsnorm(d, device),
+                 "mlp": init_mlp(gen, d, cfg.d_ff, device)})
+            for _ in range(cfg.enc_layers)]
+        params["enc_final_norm"] = init_rmsnorm(d, device)
+        params["cross"] = [
+            put({"norm": init_rmsnorm(d, device),
+                 "attn": L.init_attention(gen, cfg, device)})
+            for _ in range(cfg.n_layers)]
     return params
 
 
@@ -122,14 +167,62 @@ def init(cfg, seed: int = 0, device="cpu") -> Params:
 # forward building blocks
 # ===========================================================================
 def _embed_in(cfg, params, batch, dtype):
-    """Token embedding input + positions [B, S]."""
-    if "tokens" not in batch:
-        raise NotImplementedError(_PLANNED.format(family=cfg.family))
-    tokens = batch["tokens"]
-    B, S = tokens.shape
-    x = cast(params["embed"]["w"], dtype)[tokens]
-    positions = torch.arange(S, device=tokens.device).expand(B, S)
-    return x, positions
+    """Token or stub-frontend embedding input, positions [B, S] and
+    `positions3` (vlm; None otherwise)."""
+    if "embeds" in batch:                       # vlm stub frontend
+        x = batch["embeds"].to(dtype)
+        B, S = x.shape[:2]
+    else:
+        tokens = batch["tokens"]
+        B, S = tokens.shape
+        x = cast(params["embed"]["w"], dtype)[tokens]
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    return x, positions, batch.get("positions3")
+
+
+def _encoder(cfg, params, enc_embeds, dtype, q_chunk=0, flash=False):
+    """Whisper-style bidirectional encoder over (stub) frame embeddings
+    with sinusoidal positions."""
+    S, d = enc_embeds.shape[1:]
+    x = (enc_embeds.to(dtype)
+         + L.sinusoidal_positions(S, d, enc_embeds.device).to(dtype))
+    for lp in params["encoder"]:
+        a = rms_norm(lp["norm1"], x, cfg.norm_eps)
+        x = x + L.attention(lp["attn"], a, cfg, dtype, causal=False,
+                            q_chunk=q_chunk, flash=flash)
+        m = rms_norm(lp["norm2"], x, cfg.norm_eps)
+        x = x + swiglu_mlp(lp["mlp"], m, dtype)
+    return rms_norm(params["enc_final_norm"], x, cfg.norm_eps)
+
+
+def _mlp(cfg, lp, mlp, x, dtype, *, decode: bool):
+    """x plus the layer's MLP (dense SwiGLU, or MoE: sorted dispatch in
+    prefill, dropless in decode)."""
+    if mlp == "none":
+        return x
+    m = rms_norm(lp["norm2"], x, cfg.norm_eps)
+    if mlp == "dense":
+        return x + swiglu_mlp(lp["mlp"], m, dtype)
+    moe = moe_dense if decode else moe_sorted
+    return x + moe(lp["mlp"], m, cfg, dtype)[0]
+
+
+def _decdec_backbone(cfg, params, x, enc_out, dtype, positions, q_chunk=0,
+                     flash=False):
+    """Enc-dec decoder: causal self-attention, cross-attention over the
+    encoder output, MLP.  Returns (x, per-layer cross K/V)."""
+    kvs = []
+    for lp, cp in zip(params["layers"], params["cross"]):
+        a = rms_norm(lp["norm1"], x, cfg.norm_eps)
+        x = x + L.attention(lp["attn"], a, cfg, dtype, causal=True,
+                            positions=positions, q_chunk=q_chunk, flash=flash)
+        c = rms_norm(cp["norm"], x, cfg.norm_eps)
+        kv = L.enc_kv(cp["attn"], enc_out, cfg, dtype)
+        x = x + L.cross_attention(cp["attn"], c, kv, cfg, dtype,
+                                  q_chunk=q_chunk, flash=flash)
+        kvs.append({"k": kv[0], "v": kv[1]})
+        x = _mlp(cfg, lp, "dense", x, dtype, decode=False)
+    return x, kvs
 
 
 def _logits(cfg, params, x, dtype):
@@ -143,30 +236,53 @@ def _logits(cfg, params, x, dtype):
 # ------------------------------------------------------------- serving ----
 def init_cache(cfg, batch: int, max_seq: int, dtype=torch.bfloat16,
                device="cpu"):
-    """Decode cache: one zeroed K and V [batch, max_seq, K, hd] per layer."""
-    _require_dense(cfg)
-    shape = (batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
-    return {"layers": [
-        {"k": torch.zeros(shape, dtype=dtype, device=device),
-         "v": torch.zeros(shape, dtype=dtype, device=device)}
-        for _ in range(cfg.n_layers)]}
+    """Decode cache: per layer a zeroed K and V [batch, max_seq, K, hd]
+    in `dtype` (attention) or a zeroed fp32 Mamba state; encdec adds the
+    cross-attention K/V per decoder layer ("cross_kv")."""
+    kv = (batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+
+    def zeros_kv():
+        return {"k": torch.zeros(kv, dtype=dtype, device=device),
+                "v": torch.zeros(kv, dtype=dtype, device=device)}
+
+    cache = {"layers": [zeros_kv() if mix == "attn"
+                        else init_mamba_state(cfg, batch, device)
+                        for mix in layer_kinds(cfg)]}
+    if cfg.family == "encdec":
+        cache["cross_kv"] = [zeros_kv() for _ in range(cfg.n_layers)]
+    return cache
 
 
 def decode_fn(cfg) -> Callable:
     """One-token decode step: (params, tokens [B,1], cache, pos) ->
-    (logits [B,V] fp32, cache).  The cache is updated in place."""
-    _require_dense(cfg)
+    (logits [B,V] fp32, cache).  The cache is updated in place (a Mamba
+    state too: its bf16 conv window lands in the fp32 leaf exactly).
+    Encdec cross-attention reads the whole `max_seq` cross cache with no
+    mask, as the reference's does."""
     dtype = _dtype(cfg)
+    kinds = _kinds(cfg)
+    encdec = cfg.family == "encdec"
 
     def step(params, tokens, cache, pos):
         h = cast(params["embed"]["w"], dtype)[tokens]          # [B,1,d]
-        for lp, lc in zip(params["layers"], cache["layers"]):
+        for i, ((mix, mlp), lp, lc) in enumerate(zip(
+                kinds, params["layers"], cache["layers"])):
             a = rms_norm(lp["norm1"], h, cfg.norm_eps)
-            a, lc["k"], lc["v"] = L.attention_decode(
-                lp["attn"], a, lc["k"], lc["v"], pos, cfg, dtype)
+            if mix == "attn":
+                a, lc["k"], lc["v"] = L.attention_decode(
+                    lp["attn"], a, lc["k"], lc["v"], pos, cfg, dtype)
+            else:
+                a, st = mamba_decode_step(lp["ssm"], a, lc, cfg, dtype)
+                lc["h"].copy_(st["h"])
+                lc["conv"].copy_(st["conv"])
             h = h + a
-            m = rms_norm(lp["norm2"], h, cfg.norm_eps)
-            h = h + swiglu_mlp(lp["mlp"], m, dtype)
+            if encdec:
+                cp, ckv = params["cross"][i], cache["cross_kv"][i]
+                c = rms_norm(cp["norm"], h, cfg.norm_eps)
+                h = h + L.cross_attention(
+                    cp["attn"], c, (cast(ckv["k"], dtype),
+                                    cast(ckv["v"], dtype)), cfg, dtype)
+            h = _mlp(cfg, lp, mlp, h, dtype, decode=True)
         h = rms_norm(params["final_norm"], h, cfg.norm_eps)
         logits = _logits(cfg, params, h, dtype)[:, 0, :]
         return logits.float(), cache
@@ -176,27 +292,42 @@ def decode_fn(cfg) -> Callable:
 
 def prefill_fn(cfg, *, q_chunk: int = 0, flash: bool = True) -> Callable:
     """Full-sequence prefill: returns last-token logits (fp32 [B, V]) and
-    every layer's K/V ({"layers": [{"k", "v"} [B, S, K, hd]]}, compute
-    dtype).  `flash=True` routes self-attention through kernel K4 where
-    `layers.flash_eligible` allows (serving has no backward pass)."""
-    _require_dense(cfg)
+    the cache it fills (per layer K/V [B, S, K, hd] in the compute dtype
+    or the Mamba state after the prompt; encdec: "cross_kv" only).
+    `flash=True` routes self- and cross-attention through kernel K4
+    where `layers.flash_eligible` allows (serving has no backward
+    pass)."""
     dtype = _dtype(cfg)
+    kinds = _kinds(cfg)
+
+    def head(params, x):
+        x = rms_norm(params["final_norm"], x[:, -1:, :], cfg.norm_eps)
+        return _logits(cfg, params, x, dtype)[:, 0].float()
 
     def prefill(params, batch):
-        x, positions = _embed_in(cfg, params, batch, dtype)
+        x, positions, positions3 = _embed_in(cfg, params, batch, dtype)
         B, S = x.shape[:2]
+        if cfg.family == "encdec":
+            enc_out = _encoder(cfg, params, batch["enc_embeds"], dtype,
+                               q_chunk=q_chunk, flash=flash)
+            x, kvs = _decdec_backbone(cfg, params, x, enc_out, dtype,
+                                      positions, q_chunk=q_chunk, flash=flash)
+            return head(params, x), {"cross_kv": kvs}
         caches = []
-        for lp in params["layers"]:
+        for (mix, mlp), lp in zip(kinds, params["layers"]):
             a = rms_norm(lp["norm1"], x, cfg.norm_eps)
-            q, k, v = L._qkv(lp["attn"], a, cfg, dtype, positions)
-            o = L.sdpa_any(q, k, v, causal=True, q_chunk=q_chunk,
-                           flash=flash)
-            x = x + dense(lp["attn"]["wo"], o.reshape(B, S, -1), dtype)
-            caches.append({"k": k, "v": v})
-            m = rms_norm(lp["norm2"], x, cfg.norm_eps)
-            x = x + swiglu_mlp(lp["mlp"], m, dtype)
-        x = rms_norm(params["final_norm"], x[:, -1:, :], cfg.norm_eps)
-        logits = _logits(cfg, params, x, dtype)[:, 0]
-        return logits.float(), {"layers": caches}
+            if mix == "attn":
+                q, k, v = L._qkv(lp["attn"], a, cfg, dtype, positions,
+                                 positions3)
+                o = L.sdpa_any(q, k, v, causal=True, q_chunk=q_chunk,
+                               flash=flash)
+                x = x + dense(lp["attn"]["wo"], o.reshape(B, S, -1), dtype)
+                caches.append({"k": k, "v": v})
+            else:
+                o, st = mamba_block(lp["ssm"], a, cfg, dtype)
+                x = x + o
+                caches.append(st)
+            x = _mlp(cfg, lp, mlp, x, dtype, decode=False)
+        return head(params, x), {"layers": caches}
 
     return prefill

@@ -14,9 +14,10 @@ from ..models import transformer as T
 
 def cast_params_for_serving(params, dtype=torch.bfloat16):
     """Cast fp32 master weights (ndim ≥ 2) to the serving compute dtype;
-    norm scales (1-D) stay fp32, and an MoE router would too (routing
-    decisions are precision-sensitive).  Returns a new tree; a leaf
-    already in `dtype` is shared, so casting twice costs nothing."""
+    norm scales and other 1-D leaves stay fp32, and so does the MoE
+    router (routing decisions are precision-sensitive).  Returns a new
+    tree; a leaf already in `dtype` is shared, so casting twice costs
+    nothing."""
     def one(node, in_router=False):
         if isinstance(node, dict):
             return {k: one(v, in_router or k == "router")
@@ -43,9 +44,10 @@ def make_prefill(cfg, device, *, q_chunk: int = 1024, flash: bool = True):
     @torch.inference_mode()
     def fn(params, batch):
         params = cast_params_for_serving(params, dtype)
-        if batch["tokens"].device != device:
-            raise ValueError(f"batch on {batch['tokens'].device}, "
-                             f"prefill on {device}")
+        for name, t in batch.items():
+            if t.device != device:
+                raise ValueError(f"batch[{name!r}] on {t.device}, "
+                                 f"prefill on {device}")
         return base(params, batch)
 
     return fn

@@ -1,6 +1,7 @@
 """LMSession — the LM serving loop as a reusable, resumable object.
 
-Counterpart of `repro/serve/session.py` on one device (dense family):
+Counterpart of `repro/serve/session.py` on one device, for every LM
+family:
 
     session = LMSession("qwen3-1.7b", smoke=True, batch=4,
                         prompt_len=64, gen=32, device="cpu",
@@ -15,7 +16,7 @@ so the Gateway can interleave decode steps with other workloads
 restarts from the last `--ckpt-every` checkpoint (`start(resume=True)`
 reloads cache + tokens + step and continues decoding).
 
-Prefill runs self-attention through kernel K4 on a card
+Prefill runs self- and cross-attention through kernel K4 on a card
 (`models/layers.py::sdpa_any`); decode attention is plain PyTorch.
 
 CONTINUOUS BATCHING: the decode step takes a per-row position vector,
@@ -34,8 +35,13 @@ state is process-local).
 
 Departures from the reference, none of which changes a result: the
 session keeps only the weights cast for serving (the cast the
-reference repeats inside every jitted step), and the decode step
-updates the cache in place (the reference donates it).
+reference repeats inside every jitted step), draws and casts them one
+layer at a time (`transformer.init(..., cast=)`), so the fp32 masters
+of one layer at most are alive (a model whose masters do not fit the
+card beside its serving weights still starts), and the decode step
+updates the cache in place (the reference donates it).  `layers` cuts
+the decoder's depth (the encoder's stays), for a model that does not
+fit one card whole.
 """
 from __future__ import annotations
 
@@ -50,23 +56,31 @@ from ..obs import get_tracer, timer
 
 
 def fake_prompts(cfg, B, S, seed: int, device="cpu"):
-    """Synthetic token prompts [B, S], uniform over the vocabulary, from
-    a CPU `torch.Generator` seeded with `seed` (the same tokens on every
+    """A synthetic prompt batch matching the family's input: token
+    prompts [B, S], uniform over the vocabulary; encdec adds frame
+    embeddings "enc_embeds" bf16 [B, S, d], standard normal; vlm has
+    patch embeddings "embeds" bf16 [B, S, d] and "positions3" [B, 3, S]
+    (arange in every component) instead of tokens.  Drawn from a CPU
+    `torch.Generator` seeded with `seed` (the same prompts on every
     device).  They differ from the reference's `jax.random` draws: tests
-    feed both packages the same numpy tokens instead."""
-    if cfg.family in ("encdec", "vlm"):
-        raise NotImplementedError(
-            f"{cfg.family} prompts are not ported yet (ROADMAP.md queue 1: "
-            "the remaining LM families)")
+    feed both packages the same numpy arrays instead."""
     gen = torch.Generator().manual_seed(seed)
-    tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen)
-    return {"tokens": tokens.to(device)}
+    if cfg.stub_frontend and cfg.family == "vlm":
+        embeds = torch.randn((B, S, cfg.d_model), generator=gen)
+        return {"embeds": embeds.to(torch.bfloat16).to(device),
+                "positions3": torch.arange(S).expand(B, 3, S).to(device)}
+    batch = {"tokens": torch.randint(0, cfg.vocab, (B, S), generator=gen)}
+    if cfg.family == "encdec":
+        batch["enc_embeds"] = torch.randn((B, S, cfg.d_model),
+                                          generator=gen).to(torch.bfloat16)
+    return {k: t.to(device) for k, t in batch.items()}
 
 
 def _pairs(dst, src):
-    """Matching leaves of two cache trees (nested dicts and lists)."""
+    """Matching leaves of two cache trees (nested dicts and lists), over
+    the keys of `src` (an enc-dec prefill fills only "cross_kv")."""
     if isinstance(dst, dict):
-        for k in dst:
+        for k in src:
             yield from _pairs(dst[k], src[k])
     elif isinstance(dst, list):
         for d, s in zip(dst, src, strict=True):
@@ -120,11 +134,13 @@ class LMSession:
     def __init__(self, arch: str, *, smoke: bool = False, batch: int = 4,
                  prompt_len: int = 64, gen: int = 32, max_seq: int = 0,
                  device="cuda", seed: int = 0, ckpt_dir: str = "",
-                 ckpt_every: int = 0, metrics=None):
+                 ckpt_every: int = 0, metrics=None, layers: int = 0):
         from ..configs import get_config, get_smoke_config
 
         self.arch = arch
         self.cfg = get_smoke_config(arch) if smoke else get_config(arch)
+        if layers:
+            self.cfg = self.cfg.scaled(n_layers=layers)
         self.device = resolve_device(device)
         self.B = batch
         self.S = prompt_len
@@ -174,9 +190,10 @@ class LMSession:
         with get_tracer().span("lm.init", arch=self.arch, batch=self.B):
             # weights, the decode step and K4's build (on a card) are
             # cold-start costs; a leaf span keeps them attributable
-            self._params = cast_params_for_serving(
-                T.init(self.cfg, self.seed, self.device),
-                getattr(torch, self.cfg.dtype))
+            dtype = getattr(torch, self.cfg.dtype)
+            self._params = T.init(
+                self.cfg, self.seed, self.device,
+                cast=lambda part: cast_params_for_serving(part, dtype))
             self._decode = make_decode(self.cfg, self.device)
             ops.prepare_flash(self.device)
             _sync(self.device)

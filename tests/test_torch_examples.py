@@ -1,5 +1,6 @@
-"""The port's examples run on the CPU (`--device cpu`) and print each
-count beside the oracle's, as the reference's examples do."""
+"""The port's examples run on the CPU (`--device cpu`): the counting
+ones print each count beside the oracle's, as the reference's examples
+do; the serving one generates tokens."""
 import importlib.util
 import pathlib
 import re
@@ -26,3 +27,13 @@ def test_example_counts_equal_the_oracle(name, want, capsys):
     assert counts and set(counts) == {want}
     assert f"oracle = {want}" in out
     assert "count == oracle" in out
+
+
+def test_serve_lm_example_serves_the_moe_config(capsys):
+    """`examples/torch_serve_lm.py --device cpu`: granite-moe's reduced
+    config through LMSession, 16 steps in batches of 4."""
+    out = _run("torch_serve_lm.py", capsys)
+    assert "granite-moe-1b-a400m [moe] 2 layers, 4 experts top-2" in out
+    assert "prefill: 4x32 tokens" in out and "K4 launches=0" in out
+    assert "decoded 16/16 steps" in out
+    assert re.search(r"sample tokens\[0,:8\] = \[(\d+, ){7}\d+\]", out)

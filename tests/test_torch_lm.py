@@ -1,4 +1,5 @@
-"""Port parity, LM serving path (dense family): `repro_torch.models`,
+"""Port parity, LM serving path (dense family; the others are in
+tests/test_torch_lm_families*.py): `repro_torch.models`,
 `serve/`, `train/checkpoint.py`, `launch/serve.py` and the copied
 configs, against the reference package on the CPU.
 
@@ -381,13 +382,33 @@ def test_init_matches_reference_shapes_and_scales():
                        pp["layers"][1]["mlp"]["up"]["w"])
 
 
-def test_other_families_are_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.init(configs.get_smoke_config("mamba2-370m"), 0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.prefill_fn(configs.get_smoke_config("granite-moe-1b-a400m"))
-    assert T._block_len(configs.get_config("jamba-v0.1-52b")) == \
-        RT._block_len(ref_configs.get_config("jamba-v0.1-52b"))
+@pytest.mark.parametrize("arch", configs.ARCHS)
+def test_every_config_inits_prefills_and_decodes(arch):
+    """Port of tests/test_arch_smoke.py::test_prefill_decode_smoke for
+    all ten configurations at smoke size (bf16, weights cast for
+    serving): the family's prompts, a prefill, its cache seeded into a
+    decode cache and two greedy steps, every logit finite; the layer
+    kinds and superblock length are the reference's."""
+    cfg = configs.get_smoke_config(arch)
+    ref = ref_configs.get_smoke_config(arch)
+    assert (T.layer_kinds(cfg), T.mlp_kinds(cfg), T._block_len(cfg)) == \
+        (RT.layer_kinds(ref), RT.mlp_kinds(ref), RT._block_len(ref))
+    full = configs.get_config(arch)
+    assert T._block_len(full) == RT._block_len(ref_configs.get_config(arch))
+    B, S = 2, 32
+    params = T.init(cfg, 0, cast=cast_params_for_serving)
+    batch = fake_prompts(cfg, B, S, seed=1)
+    with torch.inference_mode():
+        logits, pc = T.prefill_fn(cfg)(params, batch)
+        assert logits.shape == (B, cfg.vocab)
+        assert bool(torch.isfinite(logits).all())
+        cache = seed_cache(T.init_cache(cfg, B, S + 2), pc, S)
+        tok = logits.argmax(-1)[:, None]
+        for pos in (S, S + 1):
+            logits, cache = T.decode_fn(cfg)(params, tok, cache, pos)
+            assert logits.shape == (B, cfg.vocab)
+            assert bool(torch.isfinite(logits).all())
+            tok = logits.argmax(-1)[:, None]
 
 
 def test_serve_steps_check_the_device(monkeypatch):
