@@ -185,6 +185,26 @@ run outside a checkout of this repository.  Phases, one line each:
     prefill s, decode ms/step and peak memory, and a torch.profiler
     window over one prefill and 4 decode steps (busy share, top
     kernels).
+18. LM training through `repro_torch.launch.train.main` on the card
+    (random weights from seed 0, fp32 masters, bf16 compute, remat on,
+    batch 4 x 1,024, no checkpoint at full size): qwen3-1.7b whole
+    (28 layers, 2.03e9 parameters) for 8 steps at --lr 3e-5 (`TRAIN_LR`
+    says why), then granite-moe-1b-a400m and whisper-base whole for 3
+    steps and mamba2-370m whole for 8, at the launcher's default rate;
+    every loss and grad norm finite, each run's last loss below its
+    first, no K4 launch in any step (training attention is plain
+    PyTorch); each prints its step times, steady s/step and tok/s and
+    peak memory, and qwen3-1.7b one more step under torch.profiler
+    (busy share, launches, top kernels).  Then the gradient at full
+    size: qwen3-1.7b whole in fp32, the loss's slope along the
+    normalized gradient equal to -|g| within 1%; qwen3-1.7b at full
+    width cut to 2 layers, one train step on the card against the
+    port's CPU path from the same state (loss within 5e-3 and grad norm
+    within 2e-2, beside the card's bf16 vs fp32 distance, the noise
+    floor); and
+    the smoke config's resume on the card, 4 + 4 steps against 8 under
+    deterministic algorithms, within the reference's tolerance (rtol
+    2e-5 / atol 2e-6).
 
 Every count of phases 3–4 sets K1's launch counters to 0 just before it
 and reads them just after; a kernel-path count must launch exactly the
@@ -204,7 +224,8 @@ phase 15 K1's, around the one-rank counts and around each rank's serve
 (the launchers' own records), exactly the plans' modes in every rank;
 in phase 16, each gateway rank's records, mask, count and signed; in
 phase 17 K4's, around each family's prefill and decode calls and each
-prefill compared, the family's flash-eligible calls per prefill.
+prefill compared, the family's flash-eligible calls per prefill; in
+phase 18 K4's, around each train step, none.
 
 Counts are integers and every comparison of phases 2–6 and 10–16 is
 exact (no tolerance).  The last two lines are the kernels record (K1's
@@ -215,13 +236,15 @@ cold serve and K4's per prefill of its graph + LM run;
 `sharded_launches`: K1's launches per rank in phase 15's query_serve
 runs; `gateway_sharded_launches`: the same in phase 16's gateway; K4's
 `family_launches`: its launches per prefill of each phase 17 family,
-and `family_shapes`: phase 9's times at the families' shapes) and the
-device record (JSON).
+`family_shapes`: phase 9's times at the families' shapes,
+`train_launches`: its launches in phase 18's train steps, 0, and
+`train_launches_per_step` by arch) and the device record (JSON).
 """
 from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import sys
 import time
@@ -2126,35 +2149,51 @@ def device_ms(fn, names, iters=20):
     cycle, then `iters` in the recorded one, averaged over the launches
     the trace holds (returned with their count); with the events' time
     beside it, this tells the host's cost per call from the kernel's.
-    The profiler has delivered a recorded cycle without a single device
-    event (1 of ~30 profiles on the card): such a cycle is profiled
-    again, up to PROFILE_TRIES times in all."""
+    A recorded trace once held a launch more than the cycle made (21
+    for 20): only launches that start after the recorded cycle begins
+    count, and any dropped is logged.  The profiler has delivered
+    a recorded cycle without a single device event (1 of ~30 profiles
+    on the card): such a cycle is profiled again, up to PROFILE_TRIES
+    times in all."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, schedule
+    from torch.profiler import (ProfilerActivity, profile, record_function,
+                                schedule)
 
+    mark = "device_ms cycle"
     for tries in range(1, PROFILE_TRIES + 1):
         traced = []              # the recorded cycle's events
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA],
                      schedule=schedule(wait=0, warmup=1, active=1),
                      on_trace_ready=lambda p: traced.extend(
-                         p.key_averages())) as prof:
+                         p.events())) as prof:
             for _ in range(2):
-                for _ in range(iters):
-                    fn()
-                torch.cuda.synchronize()
+                with record_function(mark):
+                    for _ in range(iters):
+                        fn()
+                    torch.cuda.synchronize()
                 prof.step()
+        # the trace can hold the warm-up cycle's mark too: the recorded
+        # cycle is the last
+        starts = [e.time_range.start for e in traced if e.name == mark]
+        check(bool(starts), f"profile of {names}: no cycle traced")
+        start = max(starts)
         ev = [e for e in traced
               if e.device_type == DeviceType.CUDA
-              and any(n in e.key for n in names)]
-        launches = sum(e.count for e in ev)
+              and any(n in e.name for n in names)]
+        early = [e for e in ev if e.time_range.start < start]
+        if early:
+            log(f"phase 11: profile {tries} of {names}: dropped {len(early)} "
+                f"launches that started before the recorded cycle")
+        ev = [e for e in ev if e.time_range.start >= start]
+        launches = len(ev)
         if launches:
             break
         log(f"phase 11: profile {tries} of {names} traced no launch")
     check(0 < launches <= iters, f"profiled {launches} launches of {names} "
           f"for {iters} calls in {tries} profiles")
-    return sum(e.self_device_time_total for e in ev) / 1e3 / launches, \
+    return sum(e.time_range.elapsed_us() for e in ev) / 1e3 / launches, \
         launches
 
 
@@ -3608,6 +3647,352 @@ def family_phase(card) -> dict:
     return launches
 
 
+# ------------------------------------------------------------ phase 18 --
+# LM training through `repro_torch.launch.train.main` (random weights
+# from seed 0, fp32 masters, bf16 compute, remat on, AdamW at the
+# launcher's defaults): qwen3-1.7b whole for TRAIN_STEPS steps, then the
+# families of `TRAIN_RUNS` whole for 3 steps each.  No full-size
+# checkpoint is written (qwen3-1.7b's would be 32.5 GB).
+# qwen3-1.7b trains at --lr 3e-5.  From random weights with the
+# launcher's 5 warm-up steps, larger rates spike its loss (8 steps at
+# the default 3e-4: the grad norm 5.8 -> 96.9 at step 4; at 1e-4: 8.6 ->
+# 63.0 at step 8, the loss ending above its first value).  Whether bf16
+# compute or AdamW's dynamics at this scale cause it is not yet
+# separated; the gradient itself is checked at full size in fp32
+# (`train_gradient_check`).  The other runs keep the default 3e-4;
+# mamba2-370m takes 8 steps because in 3 its loss moves less than the
+# batch-to-batch spread.
+TRAIN_ARGV = ["--batch", "4", "--seq", "1024", "--log-every", "1"]
+TRAIN_STEPS = 8
+TRAIN_LR = "3e-5"
+TRAIN_RUNS = [("granite-moe-1b-a400m", 3), ("mamba2-370m", 8),
+              ("whisper-base", 3)]
+# The backward pass at full size: qwen3-1.7b whole in fp32, one sequence
+# of TRAIN_CHECK_SEQ tokens; the loss's change along the normalized
+# gradient over a step of GRAD_EPS, divided by it, must be -|g| within
+# GRAD_RTOL (a wrong gradient points elsewhere, and the slope is then
+# smaller in size).
+GRAD_EPS = 1e-3
+GRAD_RTOL = 1e-2
+# The card against the port's CPU path: qwen3-1.7b at full width cut to
+# 2 layers, one sequence of 256 tokens, one train step from the same
+# state, bf16 on both.  The limits are absolute, about ten times the
+# distances measured on an H100: card against CPU 0.00028 on the loss
+# (about 12.3) and 0.00178 on the grad norm (about 13.9), the card's
+# bf16 step against its fp32 one 0.00011 and 0.00251.  A path with
+# nearly uniform logits (loss ln V = 11.93) lies far outside them.
+TRAIN_CHECK_LAYERS = 2
+TRAIN_CHECK_SEQ = 256
+TRAIN_LOSS_ATOL = 5e-3
+TRAIN_GNORM_ATOL = 2e-2
+# The resume check: the smoke config 4 + 4 steps against 8 straight on
+# the card, under deterministic algorithms, within the reference's own
+# tolerance (tests/test_checkpoint.py).
+RESUME_ARGV = ["--arch", ARCH, "--smoke", "--batch", "2", "--seq", "16",
+               "--log-every", "100"]
+RESUME_RTOL, RESUME_ATOL = 2e-5, 2e-6
+
+
+class TrainSteps:
+    """Wraps `train_step.make_train_step` while open: each step's
+    K4 counters are set to 0 just before it and read just after, and
+    the step is synchronized and timed on the host clock; keeps each
+    step's record and the last step's function and arguments (for a
+    profile window after the run)."""
+
+    def __init__(self):
+        self.steps: list[dict] = []
+        self.last = None
+
+    def __enter__(self):
+        from repro_torch.train import train_step
+
+        self.mod, self.make = train_step, train_step.make_train_step
+
+        def make(*a, **kw):
+            step = self.make(*a, **kw)
+
+            def recorded(params, opt_state, batch):
+                import torch
+
+                from repro_torch.kernels import ops
+
+                torch.cuda.synchronize()
+                ops.reset_launches()
+                t0 = time.perf_counter()
+                out = step(params, opt_state, batch)
+                torch.cuda.synchronize()
+                m = out[2]
+                self.steps.append({
+                    "s": time.perf_counter() - t0,
+                    "loss": float(m["loss"]), "grad_norm":
+                    float(m["grad_norm"]), "lr": float(m["lr"]),
+                    "launches": dict(ops.launches)})
+                self.last = (step, out[0], out[1], batch)
+                return out
+            return recorded
+
+        train_step.make_train_step = make
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.make_train_step = self.make
+        return False
+
+
+def profile_train_step(last, card, label, top=8) -> dict:
+    """One more step of a finished run (`TrainSteps.last`) unprofiled
+    (host clock ending in a synchronize), then one under torch.profiler:
+    the device kernels' summed time against the unprofiled wall (the
+    busy share), their launches, and the `top` kernels by time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    step, params, opt_state, batch = last
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(params, opt_state, batch)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(params, opt_state, batch)
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    n = sum(e.count for e in kern)
+    log(f"{label}: one step: device kernels {busy_ms:.3f} ms in {n} "
+        f"launches; unprofiled wall {wall_ms:.3f} ms; busy share "
+        f"{100 * busy_ms / wall_ms:.1f}% on {card}")
+    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:top]:
+        log(f"{label}:   {e.self_device_time_total / 1e3:9.3f} ms  "
+            f"x{e.count:<5d} {e.key[:160]}")
+    # the optimizer's share: the AdamW update alone on zero gradients
+    # (decay only; the run is over), CUDA events
+    from repro_torch.train import optimizer as O
+    from repro_torch.train.tree import leaves, tree_map
+
+    grads = tree_map(torch.zeros_like, params)
+    cfg = O.AdamWConfig()
+    opt_ms = time_ms(lambda: O.adamw_update(cfg, grads, opt_state, params),
+                     iters=5)
+    log(f"{label}: the AdamW update alone: {opt_ms:.3f} ms "
+        f"({len(leaves(params))} leaves) on {card}")
+    return {"busy_ms": busy_ms, "launches": n, "wall_ms": wall_ms,
+            "adamw_ms": opt_ms}
+
+
+def train_run(card, arch, steps, extra=(), profile_it=False) -> dict:
+    """`arch` whole through `launch.train.main` on the card for `steps`
+    steps: every loss and grad norm finite, the last loss below the
+    first, no K4 launch in any step; prints each step, the steady step
+    time (median after the first), tokens per second and peak memory."""
+    import gc
+    import statistics
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    argv = (["--arch", arch, "--steps", str(steps), "--device", DEVICE]
+            + TRAIN_ARGV + list(extra))
+    t0 = time.perf_counter()
+    with TrainSteps() as rec:
+        rc = train.main(argv)
+    wall = time.perf_counter() - t0
+    check(rc == 0, f"train.main {arch} exited {rc}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    st = rec.steps
+    check(len(st) == steps, f"{arch}: {len(st)} steps recorded, not {steps}")
+    losses = [r["loss"] for r in st]
+    for i, r in enumerate(st):
+        check(all(map(math.isfinite, (r["loss"], r["grad_norm"]))),
+              f"{arch}: step {i + 1} loss {r['loss']} gnorm "
+              f"{r['grad_norm']} not finite")
+        check(r["launches"]["flash"] == 0,
+              f"{arch}: step {i + 1} launched K4 {r['launches']['flash']} "
+              f"times (training attention is plain)")
+    check(losses[-1] < losses[0], f"{arch}: loss did not fall: {losses}")
+    tokens = 4 * 1024
+    steady = statistics.median(r["s"] for r in st[1:])
+    cfg = get_config(arch)
+    log(f"phase 18: train.main {' '.join(argv)} ({cfg.n_layers} layers, "
+        f"{cfg.param_count() / 1e9:.3f}e9 params): losses "
+        f"{[round(x, 4) for x in losses]}, grad norms "
+        f"{[round(r['grad_norm'], 3) for r in st]}; step s "
+        f"{[round(r['s'], 4) for r in st]}; steady {steady:.4f} s/step "
+        f"({tokens / steady:.0f} tok/s); peak memory {peak:.2f} GiB; K4 "
+        f"launches per step {[r['launches']['flash'] for r in st]}; "
+        f"train.main wall {wall:.1f} s on {card}")
+    out = {"steady_s": steady, "peak_gib": peak, "losses": losses,
+           "launches": [r["launches"]["flash"] for r in st]}
+    if profile_it:
+        out["profile"] = profile_train_step(
+            rec.last, card, f"phase 18: {arch} profile")
+    rec.last = None
+    return out
+
+
+def train_against_cpu(card) -> None:
+    """qwen3-1.7b at full width cut to TRAIN_CHECK_LAYERS layers: one
+    train step from the same state and batch on the card and on the
+    port's CPU path (bf16 both), loss within TRAIN_LOSS_ATOL and grad
+    norm within TRAIN_GNORM_ATOL,
+    printed beside the card's distance from the same step in fp32 (the
+    rounding noise floor, as phase 17 measures it on the card)."""
+    from repro_torch.configs import get_config
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import train_step as TS
+    from repro_torch.train.data import DataConfig, SyntheticLM
+    from repro_torch.train.tree import tree_map
+
+    cfg = get_config(ARCH).scaled(n_layers=TRAIN_CHECK_LAYERS)
+    opt = O.AdamWConfig(total_steps=8, warmup_steps=5)
+    opts = TS.TrainOptions(remat=True, q_chunk=0, loss_chunk=0)
+    batch = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_CHECK_SEQ,
+                                   global_batch=1), cfg).batch(0)
+    t0 = time.perf_counter()
+    master, _ = TS.init_train_state(cfg, seed=0, device="cpu")
+    got = {}
+    for name, c, dev in (("card", cfg, DEVICE), ("cpu", cfg, "cpu"),
+                         ("card fp32", cfg.scaled(dtype="float32"), DEVICE)):
+        params = tree_map(lambda t: t.to(dev, copy=True), master)
+        state = O.init_opt_state(params)
+        t1 = time.perf_counter()
+        _, _, m = TS.make_train_step(c, opt, opts, device=dev)(
+            params, state, batch)
+        got[name] = (float(m["loss"]), float(m["grad_norm"]),
+                     time.perf_counter() - t1)
+        del params, state
+    (cl, cg, cs), (pl, pg, ps), (fl, fg, _) = (
+        got["card"], got["cpu"], got["card fp32"])
+    log(f"phase 18: {ARCH} full width, {TRAIN_CHECK_LAYERS} layers, 1 x "
+        f"{TRAIN_CHECK_SEQ} tokens, one step: card loss {cl:.5f} gnorm "
+        f"{cg:.5f} ({cs:.3f} s), CPU loss {pl:.5f} gnorm {pg:.5f} "
+        f"({ps:.3f} s): apart {abs(cl - pl):.5f} / {abs(cg - pg):.5f} "
+        f"(limits {TRAIN_LOSS_ATOL} / {TRAIN_GNORM_ATOL}); noise floor, the "
+        f"card's bf16 vs fp32 step: {abs(cl - fl):.5f} / "
+        f"{abs(cg - fg):.5f}; "
+        f"{time.perf_counter() - t0:.1f} s in all on {card}")
+    for what, a, b, tol in (("loss", cl, pl, TRAIN_LOSS_ATOL),
+                            ("grad norm", cg, pg, TRAIN_GNORM_ATOL)):
+        check(abs(a - b) <= tol,
+              f"{ARCH} {TRAIN_CHECK_LAYERS} layers: card {what} {a} vs "
+              f"CPU {b}")
+
+
+def train_gradient_check(card) -> None:
+    """The gradient of `loss_fn` at full size against the loss itself:
+    qwen3-1.7b whole in fp32 on the card, (L(θ - ε·g/|g|) - L(θ)) / ε
+    within GRAD_RTOL of -|g| (`GRAD_EPS`)."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.train import optimizer as O
+    from repro_torch.train.data import DataConfig, SyntheticLM
+    from repro_torch.train.tree import leaves
+
+    cfg = get_config(ARCH).scaled(dtype="float32")
+    params = T.init(cfg, 0, DEVICE)
+    batch = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_CHECK_SEQ,
+                                   global_batch=1), cfg).batch(0)
+    batch = {k: v.to(DEVICE) for k, v in batch.items()}
+    loss = T.loss_fn(cfg, remat=True)
+    ps = leaves(params)
+    for p in ps:
+        p.requires_grad_(True)
+    l0, _ = loss(params, batch)
+    gs = torch.autograd.grad(l0, ps)
+    gn = float(O.global_norm(gs))
+    with torch.no_grad():
+        for p, g in zip(ps, gs):
+            p.sub_(g, alpha=GRAD_EPS / gn)
+        l1 = float(loss(params, batch)[0])
+    slope = (l1 - float(l0.detach())) / GRAD_EPS
+    log(f"phase 18: {ARCH} whole in fp32, 1 x {TRAIN_CHECK_SEQ} tokens: "
+        f"loss {float(l0.detach()):.6f}, |g| = {gn:.6f}; slope of the loss "
+        f"along -g/|g| over {GRAD_EPS:g}: {slope:.6f} (want -|g|, within "
+        f"{GRAD_RTOL:g}) on {card}")
+    check(abs(slope + gn) <= GRAD_RTOL * gn,
+          f"{ARCH}: slope along the gradient {slope} != -|g| = {-gn}")
+    del params, ps, gs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_resume(card) -> None:
+    """The smoke config through `launch.train.main` on the card: 4 steps
+    and a resumed 4 against 8 straight, every leaf of the step-8
+    checkpoints within the reference's tolerance, under
+    `torch.use_deterministic_algorithms` (cuBLAS's deterministic
+    workspace set for it)."""
+    import json
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import train
+
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    argv = RESUME_ARGV + ["--device", DEVICE]
+    with tempfile.TemporaryDirectory() as tmp:
+        d1, d2 = os.path.join(tmp, "a"), os.path.join(tmp, "b")
+        torch.use_deterministic_algorithms(True)
+        try:
+            with contextlib.redirect_stdout(None):
+                for steps in ("4", "8"):
+                    train.main(argv + ["--steps", steps, "--ckpt-dir", d1,
+                                       "--ckpt-every", "4"])
+                train.main(argv + ["--steps", "8", "--ckpt-dir", d2,
+                                   "--ckpt-every", "8"])
+        finally:
+            torch.use_deterministic_algorithms(False)
+
+        def leaves(d):
+            with open(os.path.join(d, "step_8", "manifest.json")) as f:
+                man = json.load(f)
+            return {m["path"]: np.load(os.path.join(d, "step_8", m["file"]))
+                    for m in man["leaves"]}
+
+        l1, l2 = leaves(d1), leaves(d2)
+    check(l1.keys() == l2.keys(), "resume: checkpoint trees differ")
+    worst = max(float(np.abs(l1[k].astype(np.float64) - l2[k]).max())
+                for k in l1)
+    for k in l1:
+        check(bool(np.allclose(l1[k], l2[k], rtol=RESUME_RTOL,
+                               atol=RESUME_ATOL)),
+              f"resume: {k} differs between 4 + 4 and 8 steps")
+    log(f"phase 18: resume on the card ({' '.join(RESUME_ARGV)}): 4 + 4 "
+        f"steps equal 8 straight within rtol {RESUME_RTOL} / atol "
+        f"{RESUME_ATOL} over {len(l1)} leaves (largest difference "
+        f"{worst:.3e}) on {card}")
+
+
+def train_phase(card) -> dict:
+    """Phase 18: LM training on the card.  Returns K4's launches per
+    step of each run (training attention is plain: all 0)."""
+    t_phase = time.perf_counter()
+    runs = {ARCH: train_run(card, ARCH, TRAIN_STEPS, ("--lr", TRAIN_LR),
+                            profile_it=True)}
+    for arch, steps in TRAIN_RUNS:
+        runs[arch] = train_run(card, arch, steps)
+    train_gradient_check(card)
+    train_against_cpu(card)
+    train_resume(card)
+    log(f"phase 18: LM training in {time.perf_counter() - t_phase:.1f}s")
+    return {arch: r["launches"] for arch, r in runs.items()}
+
+
 def ptxas_summary(log_text: str) -> list:
     """(kernel, registers, spill store bytes, spill load bytes) for each
     entry function of an `nvcc -Xptxas -v` log; names demangled by
@@ -3712,6 +4097,11 @@ def main() -> int:
     for k in kernels:
         if k["name"] == "flash_attention":
             k["family_launches"] = family
+    trained = train_phase(card)
+    for k in kernels:
+        if k["name"] == "flash_attention":
+            k["train_launches"] = sum(sum(v) for v in trained.values())
+            k["train_launches_per_step"] = trained
     log(f"done in {time.perf_counter() - t_all:.1f}s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

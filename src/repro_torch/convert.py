@@ -4,7 +4,8 @@ Graphs and plans play the part that weights play in a model.  Every
 helper takes plain numpy arrays / JSON-able dicts — what the reference
 package's `GraphCSR` fields, `plan_to_dict` records and params pytrees
 are once converted with `np.asarray` — so nothing here imports the
-reference.
+reference.  The LM mapping takes any tree in the params' layout: weights,
+their gradients, and the optimizer's moments.
 """
 from __future__ import annotations
 
@@ -83,3 +84,14 @@ def lm_params_from_reference(tree: dict, *, device="cpu") -> dict:
         if k in tree:
             out[k] = [walk(tree[k], i) for i in range(depth(tree[k]))]
     return out
+
+
+def opt_state_from_reference(state: dict, *, device="cpu") -> dict:
+    """The port's AdamW state (`train/optimizer.py`) from the
+    reference's {"m", "v", "step"} with numpy leaves: the moments go
+    through `lm_params_from_reference`'s mapping (they mirror the
+    params), the step becomes an int32 scalar tensor."""
+    return {"m": lm_params_from_reference(state["m"], device=device),
+            "v": lm_params_from_reference(state["v"], device=device),
+            "step": torch.tensor(int(np.asarray(state["step"])),
+                                 dtype=torch.int32, device=device)}

@@ -12,26 +12,36 @@ per layer in `params["layers"]` (and `params["encoder"]`,
 
 Public API:
     init(cfg, seed, device, cast=None)          -> params
+    loss_fn(cfg, remat=...)(params, batch)      -> (loss, metrics)
     prefill_fn(cfg)(params, batch)              -> (last_logits, cache)
     decode_fn(cfg)(params, tokens, cache, pos)  -> (logits, cache)
     init_cache(cfg, batch, max_seq)             -> cache
 
-Batches: prefill {"tokens" [B, S] int} plus "enc_embeds" [B, S, d]
-(encdec), or {"embeds" [B, S, d], "positions3" [B, 3, S]} (vlm); decode
-tokens [B, 1] int.  Caches: {"layers": [per layer {"k", "v"} [B, S, K,
-hd] (attention) or {"h" [B, nh, hd, ds], "conv" [B, cw-1, conv_dim]}
-(Mamba, fp32)]}, and for encdec "cross_kv": [per decoder layer {"k",
-"v"}].  The enc-dec prefill returns only "cross_kv", as the reference's
-does: the decoder's self-attention cache stays zero.
+Batches (`configs.input_specs`): prefill {"tokens" [B, S] int} plus
+"enc_embeds" [B, S, d] (encdec), or {"embeds" [B, S, d], "positions3"
+[B, 3, S]} (vlm); training adds "labels" [B, S] int (−1 masks a
+position); decode tokens [B, 1] int.  Caches: {"layers": [per layer
+{"k", "v"} [B, S, K, hd] (attention) or {"h" [B, nh, hd, ds], "conv"
+[B, cw-1, conv_dim]} (Mamba, fp32)]}, and for encdec "cross_kv": [per
+decoder layer {"k", "v"}].  The enc-dec prefill returns only
+"cross_kv", as the reference's does: the decoder's self-attention cache
+stays zero.
 
-Prefill routes MoE layers through `moe_sorted` (capacity drops) and
-decode through `moe_dense` (dropless), as the reference does.
+Prefill and training route MoE layers through `moe_sorted` (capacity
+drops; training drops the router's aux loss) and decode through
+`moe_dense` (dropless), as the reference does.  Training attention is
+plain PyTorch (`layers._sdpa` / `_sdpa_chunked`): K4 is forward-only,
+and the reference's `loss_fn` passes no `flash` either.  With `remat`
+each decoder layer is recomputed in the backward pass
+(`torch.utils.checkpoint`), where the reference rematerializes each
+scanned superblock: the math is the same.
 """
 from __future__ import annotations
 
 from typing import Callable
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import layers as L
 from .layers import (Params, cast, dense, init_dense, init_mlp, init_rmsnorm,
@@ -122,9 +132,13 @@ def init(cfg, seed: int = 0, device="cpu", cast=None) -> Params:
     `cast`, when given, maps each part (the embedding, the lm_head, one
     layer) right after it is drawn, so only one part's fp32 masters are
     alive at a time: serving passes `cast_params_for_serving`, and the
-    result equals casting the whole fp32 tree."""
+    result equals casting the whole fp32 tree.  On the `meta` device
+    the tree has the shapes and dtypes and no storage."""
     device = torch.device(device)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    # on the meta device only shapes and dtypes exist (the counterpart of
+    # the reference's `abstract_params`): there is nothing to draw
+    gen = (None if device.type == "meta"
+           else torch.Generator(device=device).manual_seed(seed))
     put = cast if cast is not None else (lambda part: part)
     d = cfg.d_model
     params: Params = {
@@ -207,22 +221,64 @@ def _mlp(cfg, lp, mlp, x, dtype, *, decode: bool):
     return x + moe(lp["mlp"], m, cfg, dtype)[0]
 
 
+def _maybe_remat(remat: bool, fn, *args):
+    """fn(*args), recomputed in the backward pass when `remat`."""
+    if remat:
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return fn(*args)
+
+
+def _decdec_layer(cfg, lp, cp, x, enc_out, dtype, positions, q_chunk, flash):
+    """One enc-dec decoder layer: causal self-attention, cross-attention
+    over the encoder output, MLP.  Returns (x, its cross K/V)."""
+    a = rms_norm(lp["norm1"], x, cfg.norm_eps)
+    x = x + L.attention(lp["attn"], a, cfg, dtype, causal=True,
+                        positions=positions, q_chunk=q_chunk, flash=flash)
+    c = rms_norm(cp["norm"], x, cfg.norm_eps)
+    kv = L.enc_kv(cp["attn"], enc_out, cfg, dtype)
+    x = x + L.cross_attention(cp["attn"], c, kv, cfg, dtype,
+                              q_chunk=q_chunk, flash=flash)
+    return _mlp(cfg, lp, "dense", x, dtype, decode=False), kv
+
+
 def _decdec_backbone(cfg, params, x, enc_out, dtype, positions, q_chunk=0,
-                     flash=False):
-    """Enc-dec decoder: causal self-attention, cross-attention over the
-    encoder output, MLP.  Returns (x, per-layer cross K/V)."""
+                     flash=False, remat=False):
+    """Enc-dec decoder stack.  Returns (x, per-layer cross K/V)."""
     kvs = []
     for lp, cp in zip(params["layers"], params["cross"]):
-        a = rms_norm(lp["norm1"], x, cfg.norm_eps)
-        x = x + L.attention(lp["attn"], a, cfg, dtype, causal=True,
-                            positions=positions, q_chunk=q_chunk, flash=flash)
-        c = rms_norm(cp["norm"], x, cfg.norm_eps)
-        kv = L.enc_kv(cp["attn"], enc_out, cfg, dtype)
-        x = x + L.cross_attention(cp["attn"], c, kv, cfg, dtype,
-                                  q_chunk=q_chunk, flash=flash)
+        x, kv = _maybe_remat(remat, _decdec_layer, cfg, lp, cp, x, enc_out,
+                             dtype, positions, q_chunk, flash)
         kvs.append({"k": kv[0], "v": kv[1]})
-        x = _mlp(cfg, lp, "dense", x, dtype, decode=False)
     return x, kvs
+
+
+def _layer(cfg, kinds, lp, x, dtype, positions, positions3, q_chunk, flash):
+    """One decoder layer of every family but encdec: the mixer (causal
+    attention or Mamba) and the MLP, each on the residual stream.
+    Returns (x, the layer's cache entry: its K/V or its Mamba state)."""
+    mix, mlp = kinds
+    a = rms_norm(lp["norm1"], x, cfg.norm_eps)
+    if mix == "attn":
+        q, k, v = L._qkv(lp["attn"], a, cfg, dtype, positions, positions3)
+        o = L.sdpa_any(q, k, v, causal=True, q_chunk=q_chunk, flash=flash)
+        a = dense(lp["attn"]["wo"], o.reshape(*x.shape[:2], -1), dtype)
+        entry = {"k": k, "v": v}
+    else:
+        a, entry = mamba_block(lp["ssm"], a, cfg, dtype)
+    return _mlp(cfg, lp, mlp, x + a, dtype, decode=False), entry
+
+
+def _backbone(cfg, params, x, dtype, positions, positions3, q_chunk=0,
+              flash=False, remat=False):
+    """The decoder stack of every family but encdec.  Returns (x, per-layer
+    cache entries)."""
+    caches = []
+    for kinds, lp in zip(_kinds(cfg), params["layers"]):
+        x, entry = _maybe_remat(remat, _layer, cfg, kinds, lp, x, dtype,
+                                positions, positions3, q_chunk, flash)
+        caches.append(entry)
+    return x, caches
 
 
 def _logits(cfg, params, x, dtype):
@@ -231,6 +287,61 @@ def _logits(cfg, params, x, dtype):
     else:
         w = cast(params["lm_head"]["w"], dtype)
     return x @ w
+
+
+# ===========================================================================
+# training
+# ===========================================================================
+def _xent(cfg, params, x, labels, dtype, loss_chunk: int = 0):
+    """Token NLL sum and count of labels ≥ 0 (fp32 log-softmax over the
+    vocabulary); over sequence chunks of `loss_chunk` when S is a
+    multiple of it above it, as in the reference, so the [B, S, V] fp32
+    logits never exist at once in the forward pass."""
+
+    def piece(xc, lc):
+        logits = _logits(cfg, params, xc, dtype).float()
+        logp = torch.log_softmax(logits, dim=-1)
+        # the reference's take_along_axis wraps a −1 label to the last
+        # class and its mask zeroes it; gather needs an index in range
+        idx = lc.clamp_min(0).long()[..., None]
+        nll = -logp.gather(-1, idx)[..., 0]
+        mask = (lc >= 0).float()
+        return (nll * mask).sum(), mask.sum()
+
+    S = labels.shape[1]
+    if loss_chunk and S % loss_chunk == 0 and S > loss_chunk:
+        tot = cnt = x.new_zeros((), dtype=torch.float32)
+        for i in range(0, S, loss_chunk):
+            s, c = piece(x[:, i:i + loss_chunk], labels[:, i:i + loss_chunk])
+            tot, cnt = tot + s, cnt + c
+        return tot, cnt
+    return piece(x, labels)
+
+
+def loss_fn(cfg, *, remat: bool = False, q_chunk: int = 0,
+            loss_chunk: int = 0) -> Callable:
+    """(params, batch) -> (mean token NLL, {"loss", "tokens"}), `tokens`
+    the count of labels ≥ 0.  `remat` recomputes each decoder layer in
+    the backward pass; `q_chunk` chunks attention over queries;
+    `loss_chunk` chunks the vocabulary softmax over the sequence."""
+    dtype = _dtype(cfg)
+
+    def loss(params, batch):
+        x, positions, positions3 = _embed_in(cfg, params, batch, dtype)
+        if cfg.family == "encdec":
+            enc_out = _encoder(cfg, params, batch["enc_embeds"], dtype,
+                               q_chunk=q_chunk)
+            x = _decdec_backbone(cfg, params, x, enc_out, dtype, positions,
+                                 q_chunk=q_chunk, remat=remat)[0]
+        else:
+            x = _backbone(cfg, params, x, dtype, positions, positions3,
+                          q_chunk=q_chunk, remat=remat)[0]
+        x = rms_norm(params["final_norm"], x, cfg.norm_eps)
+        tot, cnt = _xent(cfg, params, x, batch["labels"], dtype, loss_chunk)
+        loss = tot / cnt.clamp_min(1.0)
+        return loss, {"loss": loss, "tokens": cnt}
+
+    return loss
 
 
 # ------------------------------------------------------------- serving ----
@@ -298,7 +409,6 @@ def prefill_fn(cfg, *, q_chunk: int = 0, flash: bool = True) -> Callable:
     where `layers.flash_eligible` allows (serving has no backward
     pass)."""
     dtype = _dtype(cfg)
-    kinds = _kinds(cfg)
 
     def head(params, x):
         x = rms_norm(params["final_norm"], x[:, -1:, :], cfg.norm_eps)
@@ -306,28 +416,14 @@ def prefill_fn(cfg, *, q_chunk: int = 0, flash: bool = True) -> Callable:
 
     def prefill(params, batch):
         x, positions, positions3 = _embed_in(cfg, params, batch, dtype)
-        B, S = x.shape[:2]
         if cfg.family == "encdec":
             enc_out = _encoder(cfg, params, batch["enc_embeds"], dtype,
                                q_chunk=q_chunk, flash=flash)
             x, kvs = _decdec_backbone(cfg, params, x, enc_out, dtype,
                                       positions, q_chunk=q_chunk, flash=flash)
             return head(params, x), {"cross_kv": kvs}
-        caches = []
-        for (mix, mlp), lp in zip(kinds, params["layers"]):
-            a = rms_norm(lp["norm1"], x, cfg.norm_eps)
-            if mix == "attn":
-                q, k, v = L._qkv(lp["attn"], a, cfg, dtype, positions,
-                                 positions3)
-                o = L.sdpa_any(q, k, v, causal=True, q_chunk=q_chunk,
-                               flash=flash)
-                x = x + dense(lp["attn"]["wo"], o.reshape(B, S, -1), dtype)
-                caches.append({"k": k, "v": v})
-            else:
-                o, st = mamba_block(lp["ssm"], a, cfg, dtype)
-                x = x + o
-                caches.append(st)
-            x = _mlp(cfg, lp, mlp, x, dtype, decode=False)
+        x, caches = _backbone(cfg, params, x, dtype, positions, positions3,
+                              q_chunk=q_chunk, flash=flash)
         return head(params, x), {"layers": caches}
 
     return prefill

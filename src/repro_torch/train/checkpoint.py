@@ -23,30 +23,9 @@ import tempfile
 import numpy as np
 import torch
 
+from .tree import flatten, unflatten
+
 _VIEWS = {torch.bfloat16: torch.int16}
-
-
-def _flatten(tree, prefix=""):
-    """(path, leaf) pairs in a fixed order; paths join dict keys and list
-    indices with '/'."""
-    if isinstance(tree, dict):
-        items = tree.items()
-    elif isinstance(tree, (list, tuple)):
-        items = enumerate(tree)
-    else:
-        return [(prefix, tree)]
-    out = []
-    for k, v in items:
-        out += _flatten(v, f"{prefix}/{k}" if prefix else str(k))
-    return out
-
-
-def _rebuild(like, leaves):
-    if isinstance(like, dict):
-        return {k: _rebuild(v, leaves) for k, v in like.items()}
-    if isinstance(like, (list, tuple)):
-        return type(like)(_rebuild(v, leaves) for v in like)
-    return next(leaves)
 
 
 def _dtype_name(dtype: torch.dtype) -> str:
@@ -60,7 +39,7 @@ def save(ckpt_dir: str, step: int, tree) -> str:
     tmp = tempfile.mkdtemp(dir=ckpt_dir, prefix=".tmp_")
     manifest = {"step": step, "leaves": []}
     try:
-        for i, (p, v) in enumerate(_flatten(tree)):
+        for i, (p, v) in enumerate(flatten(tree)):
             t = v.detach().cpu()
             arr = t.view(_VIEWS.get(t.dtype, t.dtype)).numpy()
             np.save(os.path.join(tmp, f"arr_{i}.npy"), arr)
@@ -110,7 +89,7 @@ def restore(ckpt_dir: str, tree_like, *, step: int | None = None,
         manifest = json.load(f)
     by_path = {m["path"]: m for m in manifest["leaves"]}
     out = []
-    for p, like in _flatten(tree_like):
+    for p, like in flatten(tree_like):
         m = by_path[p]
         want = getattr(torch, m["dtype"])
         arr = np.load(os.path.join(d, m["file"]))
@@ -123,4 +102,4 @@ def restore(ckpt_dir: str, tree_like, *, step: int | None = None,
             raise ValueError(f"checkpoint leaf {p}: shape {tuple(t.shape)} "
                              f"!= {tuple(like.shape)}")
         out.append(t.to(device))
-    return _rebuild(tree_like, iter(out)), step
+    return unflatten(tree_like, out), step

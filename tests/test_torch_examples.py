@@ -37,3 +37,23 @@ def test_serve_lm_example_serves_the_moe_config(capsys):
     assert "prefill: 4x32 tokens" in out and "K4 launches=0" in out
     assert "decoded 16/16 steps" in out
     assert re.search(r"sample tokens\[0,:8\] = \[(\d+, ){7}\d+\]", out)
+
+
+def test_train_lm_example_trains_and_resumes(capsys, tmp_path):
+    """`examples/torch_train_lm.py --device cpu`: the reduced qwen3
+    config through `launch.train`, checkpointed; a second run with more
+    steps resumes from the first's last step."""
+    spec = importlib.util.spec_from_file_location(
+        "torch_train_lm", EXAMPLES / "torch_train_lm.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    argv = ["--device", "cpu", "--batch", "2", "--seq", "16", "--ckpt-dir",
+            str(tmp_path)]
+    assert mod.main(argv + ["--steps", "10"]) == 0
+    out = capsys.readouterr().out
+    assert re.search(r"^step 10/10 loss=[\d.]+ gnorm=", out, re.M)
+    assert "[train] done" in out
+    assert mod.main(argv + ["--steps", "20"]) == 0
+    out = capsys.readouterr().out
+    assert "[train] resumed from step 10" in out
+    assert re.search(r"^step 20/20 loss=", out, re.M)
