@@ -62,7 +62,10 @@ run outside a checkout of this repository.  Phases, one line each:
     (6, 3, 1000, 777, 128) and a bidirectional (8, 8, 2048, 2048, 64),
     then the other LM families' prefill shapes (`FAMILY_K4`:
     granite-moe causal hd 64 with G = 2, whisper causal and
-    bidirectional hd 64, jamba G = 4 and qwen2-vl G = 8, hd 128);
+    bidirectional hd 64, jamba G = 4 and qwen2-vl G = 8, hd 128), then
+    each rank's shapes under tensor parallelism (`TP_K4`: qwen2-vl G =
+    8, jamba G = 4, granite-34b 24 over 1, whisper hd 64 at a model
+    axis of 2, qwen2-vl 16 over 2 at 4);
     each case launches the kernel the source's rule names (bf16: wgmma,
     fp32: scalar) and each bf16 case twice, bit-equal;
  8. qwen3-1.7b at full width and depth (random weights from seed 0)
@@ -205,6 +208,22 @@ run outside a checkout of this repository.  Phases, one line each:
     the smoke config's resume on the card, 4 + 4 steps against 8 under
     deterministic algorithms, within the reference's tolerance (rtol
     2e-5 / atol 2e-6).
+19. tensor-parallel LM serving: one torchrun of 2 ranks sharing the
+    card (gloo) at `--model-axis 2`, each rank serving, through
+    `repro_torch.launch.serve.main` in the launch's group, qwen2-vl-72b
+    at full width cut to 4 layers, jamba-v0.1-52b cut to 8,
+    granite-34b cut to 8 (its one KV head: the decode cache splits its
+    sequence) and whisper-base whole (batch 4, a 2,048-token prompt,
+    16 tokens, seed 0, bf16); every rank launches K4 4 / 1 / 8 / 18
+    times a prefill, all wgmma, none in decode, and takes the same
+    tokens; each run's TP prefill logits lie within phase 8's limits of
+    the one-device kernel path's (phase 17's for jamba and qwen2-vl,
+    made here for the others; printed beside the plain path's fp32
+    noise floor), and the first tokens agree wherever the one-device
+    top-2 gap exceeds that distance; per rank its prefill s, decode
+    ms/step and peak memory.  With 4 or more cards, qwen2-vl-72b whole
+    at `--model-axis 4` under NCCL (a card per rank), 80 K4 launches a
+    rank; with fewer, a line saying it was skipped.
 
 Every count of phases 3–4 sets K1's launch counters to 0 just before it
 and reads them just after; a kernel-path count must launch exactly the
@@ -225,7 +244,9 @@ phase 15 K1's, around the one-rank counts and around each rank's serve
 in phase 16, each gateway rank's records, mask, count and signed; in
 phase 17 K4's, around each family's prefill and decode calls and each
 prefill compared, the family's flash-eligible calls per prefill; in
-phase 18 K4's, around each train step, none.
+phase 18 K4's, around each train step, none; in phase 19 each rank's
+K4 counters, around its served prefill and decode calls, its
+flash-eligible calls per prefill and none in decode.
 
 Counts are integers and every comparison of phases 2–6 and 10–16 is
 exact (no tolerance).  The last two lines are the kernels record (K1's
@@ -237,8 +258,9 @@ cold serve and K4's per prefill of its graph + LM run;
 runs; `gateway_sharded_launches`: the same in phase 16's gateway; K4's
 `family_launches`: its launches per prefill of each phase 17 family,
 `family_shapes`: phase 9's times at the families' shapes,
-`train_launches`: its launches in phase 18's train steps, 0, and
-`train_launches_per_step` by arch) and the device record (JSON).
+`train_launches`: its launches in phase 18's train steps, 0,
+`train_launches_per_step` by arch, and `tp_launches`: its launches per
+rank per prefill in phase 19, by arch) and the device record (JSON).
 """
 from __future__ import annotations
 
@@ -1293,6 +1315,16 @@ FAMILY_K4 = [("granite-moe-1b-a400m", (64, 32, 2048, 2048, 64), True, 24),
              ("jamba-v0.1-52b", (128, 32, 2048, 2048, 128), True, 1),
              ("qwen2-vl-72b", (256, 32, 2048, 2048, 128), True, 4)]
 WGMMA_CASES += [(shape, causal) for _, shape, causal, _ in FAMILY_K4]
+# Each rank's prefill shapes under tensor parallelism (phase 19, batch 4,
+# a 2,048-token prompt): at a model axis of 2, qwen2-vl-72b's 32 query
+# heads over 4 KV heads (G = 8), jamba-v0.1-52b's 16 over 4 (G = 4),
+# granite-34b's 24 over its one KV head (G = 24: the KV heads do not
+# divide the axis, so a rank keeps it whole) and whisper-base's 4 over
+# 4 (hd 64, causal and bidirectional); at 4, qwen2-vl-72b's 16 over 2.
+TP_K4 = [((128, 16, 2048, 2048, 128), True), ((64, 16, 2048, 2048, 128), True),
+         ((96, 4, 2048, 2048, 128), True), ((16, 16, 2048, 2048, 64), True),
+         ((16, 16, 2048, 2048, 64), False), ((64, 8, 2048, 2048, 128), True)]
+WGMMA_CASES += TP_K4
 # The reference's own tolerances (tests/test_flash_kernel.py:39).
 FLASH_ATOL = {"bfloat16": 3e-2, "float32": 2e-5}
 BF16_FLOPS = 989e12              # H100 SXM dense bf16 tensor cores
@@ -1667,7 +1699,8 @@ class PhaseLaunches:
                 self.sessions.append(session)
             ops.reset_launches()
             out = fn(session, *a, **kw)
-            torch.cuda.synchronize()
+            if session.device.type == "cuda":
+                torch.cuda.synchronize()
             self.records.append((phase, ops.launches["flash"]))
             self.variants.append(dict(k4.variant_launches))
             return out
@@ -3631,6 +3664,8 @@ def family_run(card, arch, layers, want) -> dict:
 
     profile_serving(session, cfg, batch, card, decode=decode4, top=5,
                     label=f"phase 17: {arch} profile")
+    # phase 19 holds its tensor-parallel logits against these
+    RESULTS[f"one-device logits {arch}"] = (kl.cpu(), f_max, f_mean)
     return {"launches": want, "prefill_s": m["prefill_seconds"],
             "decode_ms": m["ms_per_step"], "peak_gib": peak,
             "max_abs": d_max}
@@ -3645,6 +3680,7 @@ def family_phase(card) -> dict:
         launches[arch] = family_run(card, arch, layers, want)["launches"]
     log(f"phase 17: LM families in {time.perf_counter() - t_phase:.1f}s")
     return launches
+
 
 
 # ------------------------------------------------------------ phase 18 --
@@ -3993,6 +4029,292 @@ def train_phase(card) -> dict:
     return {arch: r["launches"] for arch, r in runs.items()}
 
 
+# ------------------------------------------------------------ phase 19 --
+# Tensor-parallel serving through `repro_torch.launch.serve --model-axis
+# 2`: one torchrun launch of TP_WORLD ranks sharing the card (gloo; NCCL
+# refuses two ranks on one device), batch 4, a 2,048-token prompt, 16
+# tokens, random weights from seed 0, bf16: (arch, decoder layers (0:
+# all), K4 launches per rank per prefill).  qwen2-vl-72b at full width
+# cut to 4 layers as in phase 17, jamba-v0.1-52b to 8 (one superblock),
+# granite-34b to 8 (its one KV head puts the decode cache's sequence over
+# the model axis: flash-decoding) and whisper-base whole.  The ranks
+# serve the runs one after another in one launch (`tp_child`: each
+# calls `launch.serve.main`'s body in the group the launch opened).
+TP_WORLD = 2
+TP_RUNS = [("qwen2-vl-72b", 4, 4), ("jamba-v0.1-52b", 8, 1),
+           ("granite-34b", 8, 8), ("whisper-base", 0, 18)]
+TP_PROMPT = 2048
+TP_ARGV = ["--batch", "4", "--gen", "16", "--model-axis", str(TP_WORLD)]
+# Each run's TP prefill logits are held to phase 8's limits,
+# PREFILL_MAX_ABS and PREFILL_MEAN_ABS, against the one-device kernel
+# path's on the same weights and prompts (phase 17's for jamba and
+# qwen2-vl, made here for the others): the TP path sums each
+# row-parallel product's partials in fp32 over gloo and rounds once,
+# where one device rounds the whole product, and MoE routing amplifies
+# that the way phase 17's note says.  The first greedy token must equal
+# the one-device token wherever the one-device top-2 gap exceeds that
+# distance.
+TP_TIMEOUT_S = 420
+TP_CHILD_ARGV: list = []          # extra `tp_child` flags (a CPU rehearsal)
+TP4_ARGV = ["--arch", "qwen2-vl-72b", "--batch", "4", "--prompt-len", "2048",
+            "--gen", "16", "--model-axis", "4"]
+TP_RANK_LINE = (r"\[serve\] rank (\d+): K4 launches=(\d+) prefill=([\d.]+)s "
+                r"decode=([\d.]+)ms/step peak=([\d.]+)GiB")
+
+
+def tp_child(argv) -> int:
+    """A rank of phase 19's launch (`chip_smoke.py --tp-child --out F`,
+    under torchrun): every run of `TP_RUNS` through `launch.serve.main`'s
+    body (`--model-axis TP_WORLD`) in the launch's group, K4's launches
+    per phase recorded (`PhaseLaunches`), then one more TP prefill on
+    the served weights and prompts, whose logits rank 0 saves to
+    F.<arch>.pt; each rank writes its records to F.rank<r>.json."""
+    import argparse
+    import gc
+
+    import torch
+
+    from repro_torch.launch import mesh, serve
+    from repro_torch.serve.serve_step import make_prefill
+    from repro_torch.serve.session import fake_prompts
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--out", required=True)
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--prompt-len", type=int, default=TP_PROMPT)
+    args = ap.parse_args(argv)
+    group, device = mesh.shared_group(args.device)
+    rank = group.rank()
+    cuda = device.type == "cuda"
+    records = []
+    for arch, layers, _ in TP_RUNS:
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        run = (["--arch", arch, "--prompt-len", str(args.prompt_len),
+                "--device", args.device] + TP_ARGV
+               + (["--layers", str(layers)] if layers else [])
+               + (["--smoke"] if args.smoke else []))
+        with PhaseLaunches() as rec:
+            rc = serve.main.__wrapped__(run)
+        session = rec.sessions[0]
+        m = session.metrics()
+        peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else 0.0
+        batch = fake_prompts(session.cfg, 4, args.prompt_len, seed=0,
+                             device=device)
+        prefill = make_prefill(session.cfg, device, q_chunk=0,
+                               grid=session.grid)
+        t0 = time.perf_counter()
+        logits, _ = prefill(session._params, batch)
+        if cuda:
+            torch.cuda.synchronize()
+        warm = time.perf_counter() - t0
+        if rank == 0:
+            torch.save(logits.float().cpu(), f"{args.out}.{arch}.pt")
+        records.append({
+            "arch": arch, "rc": rc, "phases": rec.records,
+            "variants": rec.variants, "prefill_s": m["prefill_seconds"],
+            "warm_prefill_s": warm,
+            "decode_ms": m["ms_per_step"], "peak_gib": peak,
+            "tokens": session.tokens_out()[:, 0].tolist(),
+            "split": [session.grid.data, session.grid.model]})
+        del session, rec, prefill, logits, batch
+    with open(f"{args.out}.rank{rank}.json", "w") as f:
+        json.dump(records, f)
+    del group                   # close_group frees the group it holds
+    mesh.close_group()
+    return 0
+
+
+def one_device_logits(arch, layers, device):
+    """The one-device kernel-path prefill logits of `arch` cut to
+    `layers` (weights from seed 0 cast layer by layer, `fake_prompts`
+    of seed 0), beside the plain path's noise floor (plain against
+    `fp32_attention`, max and mean): what phase 17 keeps for its runs."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.serve_step import (cast_params_for_serving,
+                                              make_prefill)
+    from repro_torch.serve.session import fake_prompts
+
+    cfg = get_config(arch)
+    if layers:
+        cfg = cfg.scaled(n_layers=layers)
+    params = T.init(cfg, 0, device, cast=cast_params_for_serving)
+    batch = fake_prompts(cfg, 4, TP_PROMPT, seed=0, device=device)
+    kernel = make_prefill(cfg, device, q_chunk=0)(params, batch)[0]
+    plain = make_prefill(cfg, device, q_chunk=0, flash=False)
+    pl = plain(params, batch)[0]
+    with fp32_attention():
+        wl = plain(params, batch)[0]
+    d = (pl - wl).abs()
+    out = (kernel.float().cpu(), float(d.max()), float(d.mean()))
+    del params, batch, kernel, pl, wl
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_launch(what, world, argv, timeout=TP_TIMEOUT_S):
+    """One torchrun of `world` ranks on the card, in a session of its
+    own (killed whole past `timeout`); returns (exit code, output)."""
+    import signal
+    import subprocess
+
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(world), *argv]
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS="1")
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, _ = proc.communicate()
+        log(out[-4000:])
+        check(False, f"{what}: no end in {timeout}s")
+    if proc.returncode != 0:
+        log(out[-6000:])
+    for ln in out.splitlines():
+        if ln.startswith(("[serve] rank", "[serve] grid", "[group]")):
+            log(f"phase 19: {what}: {ln}")
+    return proc.returncode, out
+
+
+def tp_whole_run(card) -> list:
+    """qwen2-vl-72b whole (80 layers, 145 GB in bf16) at `--model-axis
+    4` through `launch.serve` under NCCL, a card per rank: 80 K4
+    launches a rank per prefill, 16 tokens served; each rank's line
+    printed.  Returns the K4 launches per rank."""
+    import re
+
+    rc, out = tp_launch("qwen2-vl-72b whole, 4 cards", 4,
+                        ["-m", "repro_torch.launch.serve", *TP4_ARGV])
+    check(rc == 0, f"phase 19: 4-card torchrun exited {rc}")
+    check("[group] world=4 backend=nccl" in out,
+          "phase 19: the 4-card launch is not on NCCL")
+    rows = re.findall(TP_RANK_LINE, out)
+    check([int(r[0]) for r in rows] == [0, 1, 2, 3]
+          and all(int(r[1]) == 80 for r in rows),
+          f"phase 19: 4-card K4 launches per rank {rows}, want 80")
+    check("[serve] decode: 16 steps" in out,
+          "phase 19: the 4-card run did not serve 16 tokens")
+    for ln in out.splitlines():
+        if ln.startswith(("[serve] prefill", "[serve] decode",
+                          "[serve] sample")):
+            log(f"phase 19: qwen2-vl-72b whole, 4 cards: {ln} on {card}")
+    return [int(r[1]) for r in rows]
+
+
+def tp_phase(card) -> dict:
+    """Phase 19: `TP_RUNS` through one torchrun of `launch.serve
+    --model-axis 2` (`tp_child`): every rank launches K4 once per
+    flash-eligible attention call of its prefill and none in decode,
+    all of the wgmma kernel; the ranks take the same tokens; the TP
+    prefill logits lie within phase 8's limits of the one-device
+    kernel path's, and the first tokens agree wherever the one-device
+    top-2 gap exceeds the distance.  With 4 or more cards, qwen2-vl-72b
+    whole at `--model-axis 4` under NCCL, a card per rank.  Returns K4's
+    launches per rank per prefill by arch."""
+    import gc
+    import tempfile
+
+    import torch
+
+    t_phase = time.perf_counter()
+    gc.collect()                  # the earlier phases' weights: the
+    torch.cuda.empty_cache()      # ranks need the card's memory
+    log(f"phase 19: this process holds "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB of the card")
+    one = {}
+    for arch, layers, _ in TP_RUNS:
+        key = f"one-device logits {arch}"
+        one[arch] = RESULTS.get(key) or one_device_logits(arch, layers,
+                                                          DEVICE)
+    out_dir = tempfile.mkdtemp(prefix="tp-", dir=os.path.join(ROOT, "build"))
+    base = os.path.join(out_dir, "run")
+    t0 = time.perf_counter()
+    rc, out = tp_launch(f"{TP_WORLD} ranks, one card", TP_WORLD,
+                        [os.path.abspath(__file__), "--tp-child", "--out",
+                         base, "--device", DEVICE, *TP_CHILD_ARGV])
+    wall = time.perf_counter() - t0
+    check(rc == 0, f"phase 19: torchrun exited {rc}")
+    check(f"[group] world={TP_WORLD} backend=gloo" in out,
+          "phase 19: the ranks sharing the card are not on gloo")
+    ranks = []
+    for r in range(TP_WORLD):
+        with open(f"{base}.rank{r}.json") as f:
+            ranks.append(json.load(f))
+    launches = {}
+    for i, (arch, layers, want) in enumerate(TP_RUNS):
+        recs = [rk[i] for rk in ranks]
+        for r, rec in enumerate(recs):
+            phases = [tuple(p) for p in rec["phases"]]
+            check(rec["rc"] == 0, f"phase 19: {arch} rank {r}: serve "
+                  f"exited {rec['rc']}")
+            check(phases == [("prefill", want), ("decode", 0)],
+                  f"phase 19: {arch} rank {r}: K4 launches {phases}, want "
+                  f"{want} in the prefill and none in decode")
+            check(rec["variants"] == [{"scalar": 0, "wgmma": n}
+                                      for _, n in phases],
+                  f"phase 19: {arch} rank {r}: K4 kernels {rec['variants']}")
+            check(rec["tokens"] == recs[0]["tokens"],
+                  f"phase 19: {arch}: ranks took other tokens "
+                  f"{[x['tokens'] for x in recs]}")
+        launches[arch] = [want] * TP_WORLD
+        tp = torch.load(f"{base}.{arch}.pt")
+        kl, f_max, f_mean = one[arch]
+        check(tp.shape == kl.shape and bool(torch.isfinite(tp).all()),
+              f"phase 19: {arch}: TP logits {tuple(tp.shape)} vs "
+              f"{tuple(kl.shape)}, or not finite")
+        d = (tp - kl.float()).abs()
+        d_max, d_mean = float(d.max()), float(d.mean())
+        top = kl.float().topk(2, dim=-1).values
+        gap = (top[:, 0] - top[:, 1]).tolist()
+        t_tok, o_tok = tp.argmax(-1).tolist(), kl.argmax(-1).tolist()
+        served = recs[0]["tokens"]
+        per_rank = "; ".join(
+            f"rank {r} prefill {x['prefill_s']:.4f} s (warm "
+            f"{x['warm_prefill_s']:.4f} s), decode "
+            f"{x['decode_ms']:.3f} ms/step, peak {x['peak_gib']:.2f} GiB"
+            for r, x in enumerate(recs))
+        log(f"phase 19: {arch} ({layers or 'all'} layers) at data x model "
+            f"= {recs[0]['split']}: {per_rank}; TP vs one-device logits "
+            f"max_abs={d_max:.4f} mean_abs={d_mean:.5f} (limits "
+            f"{PREFILL_MAX_ABS} / {PREFILL_MEAN_ABS}; one-device plain vs "
+            f"fp32 attention noise floor max_abs={f_max:.4f} "
+            f"mean_abs={f_mean:.5f}); first tokens TP {t_tok} served "
+            f"{served} one-device {o_tok} (top-2 gaps "
+            f"{', '.join(f'{g:.4f}' for g in gap)}) on {card}")
+        check(d_max <= PREFILL_MAX_ABS and d_mean <= PREFILL_MEAN_ABS,
+              f"phase 19: {arch}: TP vs one-device logits max {d_max} "
+              f"mean {d_mean}")
+        for b, g in enumerate(gap):
+            if g > d_max:
+                check(t_tok[b] == o_tok[b] == served[b],
+                      f"phase 19: {arch} row {b}: first token TP "
+                      f"{t_tok[b]} served {served[b]} one-device "
+                      f"{o_tok[b]} (gap {g:.4f} > {d_max:.4f})")
+    log(f"phase 19: {TP_WORLD}-rank launch in {wall:.1f}s")
+    if torch.cuda.device_count() >= 4:
+        launches["qwen2-vl-72b whole, model 4"] = tp_whole_run(card)
+    else:
+        log(f"phase 19: qwen2-vl-72b whole at --model-axis 4 on 4 cards "
+            f"skipped: {torch.cuda.device_count()} card(s) visible")
+    log(f"phase 19: tensor-parallel serving in "
+        f"{time.perf_counter() - t_phase:.1f}s")
+    return launches
+
+
+# ------------------------------------------------------------- phase 1 --
 def ptxas_summary(log_text: str) -> list:
     """(kernel, registers, spill store bytes, spill load bytes) for each
     entry function of an `nvcc -Xptxas -v` log; names demangled by
@@ -4102,6 +4424,10 @@ def main() -> int:
         if k["name"] == "flash_attention":
             k["train_launches"] = sum(sum(v) for v in trained.values())
             k["train_launches_per_step"] = trained
+    tp = tp_phase(card)
+    for k in kernels:
+        if k["name"] == "flash_attention":
+            k["tp_launches"] = tp
     log(f"done in {time.perf_counter() - t_all:.1f}s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -4112,4 +4438,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--tp-child"]:
+        sys.exit(tp_child(sys.argv[2:]))
     sys.exit(main())

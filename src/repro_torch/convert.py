@@ -14,6 +14,7 @@ import torch
 
 from .core.plan import MatchingPlan, plan_from_dict
 from .graph.csr import GraphCSR
+from .parallel.sharding import leaves, map_leaves, partition
 
 
 def graph_from_arrays(indptr, indices, degrees, labels=None, *,
@@ -95,3 +96,45 @@ def opt_state_from_reference(state: dict, *, device="cpu") -> dict:
             "v": lm_params_from_reference(state["v"], device=device),
             "step": torch.tensor(int(np.asarray(state["step"])),
                                  dtype=torch.int32, device=device)}
+
+
+def shard_params(tree: dict, cfg, grid, *, model_rank: int | None = None):
+    """A rank's shard of a whole LM param tree (`models/transformer.py`
+    layout; fp32 masters or cast for serving): each leaf that
+    `parallel.sharding.partition` splits over the model axis keeps the
+    indices of model rank `model_rank` (default: `grid`'s own), the
+    others are kept whole.  Works on the parts `transformer.init` draws
+    one at a time too ({"embed": ...}, {"layers": [...]})."""
+    r = grid.model_rank if model_rank is None else model_rank
+
+    def one(path, leaf):
+        cut = partition(path, tuple(leaf.shape), cfg, grid)
+        if cut is None:
+            return leaf
+        dim, idx = cut
+        return leaf.index_select(dim, idx(r).to(leaf.device))
+
+    return map_leaves(one, tree)
+
+
+def gather_params(shards: list, cfg, grid) -> dict:
+    """The whole tree from every model rank's shard (`shards[r]` is
+    model rank r's): the inverse of `shard_params`."""
+    from .models.transformer import init
+
+    flat = [[leaf for _, leaf in leaves(s)] for s in shards]
+    at = iter(range(len(flat[0])))
+
+    def one(path, whole):
+        i = next(at)
+        parts = [f[i] for f in flat]
+        cut = partition(path, tuple(whole.shape), cfg, grid)
+        if cut is None:
+            return parts[0]
+        dim, idx = cut
+        out = parts[0].new_empty(whole.shape)
+        for r, part in enumerate(parts):
+            out.index_copy_(dim, idx(r).to(part.device), part)
+        return out
+
+    return map_leaves(one, init(cfg, device="meta"))

@@ -5,7 +5,7 @@
         --prompt-len 16 --graph-quantum 4 --lm-quantum 2 --device cpu
 
 Port of `repro/launch/gateway.py`: `--device` (default cuda, which
-raises without a card) replaces `--model-axis` / `--single-device`, and
+raises without a card) names this process's device, and
 the LM tenant is the port's `LMSession` for any `--arch` of
 `repro_torch.configs.ARCHS` (`--full-lm`: the full config, prefill
 attention through kernel K4 on a card).  Builds ONE Gateway
@@ -36,11 +36,15 @@ graph (the `mutate` RPC verb).
 
 Under torchrun (world size > 1, without `--single-device`) the graph
 tenant is sharded over the ranks, one process per GPU
-(`serve/spmd.py`): rank 0 owns the scheduler, the RPC server and the
-LM tenant (on its card alone) and broadcasts each round to the other
-ranks, which replay it on their own `QueryEngine(group=)`; rank 0
-alone prints, with one line per rank (its counting wall and K1
-launches), and every rank exits with the same code.
+(`serve/spmd.py`): rank 0 owns the scheduler and the RPC server and
+broadcasts each round to the other ranks, which replay it on their own
+`QueryEngine(group=)`.  The LM tenant spans the ranks as a data ×
+model grid (`--model-axis M`, which must divide the world; tensor
+parallelism as in `launch.serve`): every rank holds its shard of the
+session and makes the calls rank 0's scheduler makes, which rank 0
+broadcasts before each.  Rank 0 alone prints, with one line per rank
+(its counting wall and K1 launches), and every rank exits with the
+same code.
 
     PYTHONPATH=src torchrun --standalone --nproc-per-node 2 \
         -m repro_torch.launch.gateway --no-lm --listen 0 --port-file F
@@ -109,6 +113,9 @@ def parse_args(argv=None):
                     help="decode steps per scheduler turn")
     ap.add_argument("--lm-weight", type=int, default=1,
                     help="LM turns per round (fair-share weight)")
+    ap.add_argument("--model-axis", type=int, default=1,
+                    help="tensor-parallel ranks per LM replica under "
+                         "torchrun (must divide the world)")
     ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--ckpt-every", type=int, default=0)
     ap.add_argument("--resume", action="store_true")
@@ -196,7 +203,7 @@ def run(args, *, log=print) -> GatewayRun:
         Gateway, GraphQueryWorkload, LMDecodeWorkload, Share,
     )
     from ..serve.session import LMSession
-    from ..serve.spmd import Follower, LeaderEngine
+    from ..serve.spmd import Follower, LeaderEngine, LeaderSession
     from .mesh import launched_sharded, shared_group
 
     start_tracing(args)
@@ -216,6 +223,9 @@ def run(args, *, log=print) -> GatewayRun:
         group, device = shared_group(args.device, log=log)
         if group.rank() != 0:
             log = _quiet
+    elif args.model_axis != 1:
+        raise ValueError(f"--model-axis {args.model_axis} needs a world of "
+                         f"ranks it divides (torchrun --nproc-per-node)")
     leads = group is None or group.rank() == 0
     graph = get_dataset(args.dataset)
     cfg = ExecutorConfig(capacity=args.capacity)
@@ -242,8 +252,11 @@ def run(args, *, log=print) -> GatewayRun:
     if group is None:
         engine = QueryEngine(graph, tenant_depth=depth, **kw)
     elif leads:
+        # the LM tenant's calls go through the followers' loop too, so
+        # they stop only once the gateway has run both tenants
         engine = LeaderEngine(graph, group=group, tenant_depth=depth,
-                              stop_when_drained=not listen, **kw)
+                              stop_when_drained=not listen and args.no_lm,
+                              **kw)
     else:
         # admission is rank 0's alone: a follower replays its decisions
         engine = QueryEngine(graph, group=group, **kw)
@@ -258,12 +271,23 @@ def run(args, *, log=print) -> GatewayRun:
         n = engine.warm_from_disk()
         log(f"[gateway] warm-from-disk: {n} plan(s) preloaded")
     before = dict(ops.launches)
+
+    def lm_session():
+        return LMSession(
+            args.arch, smoke=not args.full_lm, batch=args.batch,
+            prompt_len=args.prompt_len, gen=args.gen, device=engine.device,
+            seed=args.seed, ckpt_dir=args.ckpt_dir,
+            ckpt_every=args.ckpt_every, metrics=metrics, group=group,
+            model_axis=args.model_axis)
+
     if not leads:
-        follower = Follower(engine).run()
+        session = None if args.no_lm else lm_session()
+        follower = Follower(engine, session=session).run()
         results = follower.results()
         rc = _sharded_exit(group, engine, before,
                            _result_rc(results, log), log)
-        return GatewayRun(rc, engine, None, results, follower=follower)
+        return GatewayRun(rc, engine, None, results, session,
+                          follower=follower)
 
     # a listening server starts with an empty queue unless a trace file
     # pre-seeds it — clients are the request source
@@ -278,13 +302,9 @@ def run(args, *, log=print) -> GatewayRun:
                       Share(quantum=max(args.graph_quantum, 1)))
     session = None
     if not args.no_lm:
-        session = LMSession(
-            args.arch, smoke=not args.full_lm, batch=args.batch,
-            prompt_len=args.prompt_len, gen=args.gen, device=engine.device,
-            seed=args.seed, ckpt_dir=args.ckpt_dir,
-            ckpt_every=args.ckpt_every, metrics=metrics,
-        )
-        gw.add(LMDecodeWorkload(session, resume=args.resume),
+        session = lm_session()
+        lm = session if group is None else LeaderSession(session, engine)
+        gw.add(LMDecodeWorkload(lm, resume=args.resume),
                Share(quantum=max(args.lm_quantum, 1),
                      weight=max(args.lm_weight, 1)))
         log(f"[gateway] lm={args.arch} "
@@ -375,6 +395,8 @@ def run(args, *, log=print) -> GatewayRun:
         log(f"[gateway] lm: {m['steps_done']}/{m['steps_total']} steps "
             f"({how}, {m['decode_tok_s']:.1f} tok/s, "
             f"{m['ms_per_step']:.1f} ms/step)")
+        log(f"[gateway] lm sample tokens[0,:16] = "
+            f"{session.tokens_out()[0, :16].tolist()}")
 
     finish_tracing(args, registry=metrics, tag="gateway")
 

@@ -15,6 +15,12 @@ run on the CPU.  Gloo reduces CUDA tensors by staging them through the
 host; the sharded matcher reduces two scalars per pass, so that copy is
 negligible.
 
+Tensor-parallel serving lays the ranks out on a data × model grid
+(`make_grid`, the counterpart of `make_host_mesh`): rank r sits at data
+index r // M and model index r % M, and the grid carries the process
+groups of its model axis (the M ranks of one data index) and its data
+axis.
+
 Functions only: importing this module initializes no group.
 """
 from __future__ import annotations
@@ -115,6 +121,52 @@ def shared_group(device="cuda", **kw):
     return _SHARED["world"]
 
 
+def make_grid(group=None, *, model: int = 1):
+    """A data × model `parallel.sharding.Grid` over the ranks of `group`
+    (default: the world), in the order of the reference's
+    `make_host_mesh` (the devices reshaped to (n // model, model)).
+    Creates the model-axis and data-axis subgroups (a collective: every
+    rank creates every subgroup, in the same order); raises when
+    `model` does not divide the world."""
+    from ..parallel.sharding import Grid
+
+    group = dist.group.WORLD if group is None else group
+    world, rank = dist.get_world_size(group), dist.get_rank(group)
+    if model < 1 or world % model:
+        raise ValueError(f"a model axis of {model} does not divide the "
+                         f"world of {world} rank(s)")
+    ranks = (list(range(world)) if group is dist.group.WORLD else
+             [dist.get_global_rank(group, i) for i in range(world)])
+    rows = world // model
+    kw = dict(backend=dist.get_backend(group),
+              timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
+    model_group = data_group = None
+    for d in range(rows):
+        g = dist.new_group([ranks[d * model + m] for m in range(model)], **kw)
+        if rank // model == d:
+            model_group = g
+    for m in range(model):
+        g = dist.new_group([ranks[d * model + m] for d in range(rows)], **kw)
+        if rank % model == m:
+            data_group = g
+    return Grid(("data", "model"), (rows, model), rank=rank,
+                model_group=model_group, data_group=data_group)
+
+
+_GRIDS: dict = {}
+
+
+def shared_grid(model: int = 1, group=None):
+    """The process-wide grid of a model-axis width over `group` (default
+    the world): the counterpart of the reference's `shared_host_mesh`,
+    so every tenant of a process uses one set of subgroups."""
+    group = dist.group.WORLD if group is None else group
+    key = (id(group), model)
+    if key not in _GRIDS:
+        _GRIDS[key] = make_grid(group, model=model)
+    return _GRIDS[key]
+
+
 def close_group() -> bool:
     """Leave the default group and free it (a collective); returns
     whether it was freed.
@@ -132,6 +184,7 @@ def close_group() -> bool:
     (`leaves_group`).  A group still held is reported on stderr."""
     _SHARED.clear()
     _DEVICES.clear()
+    _GRIDS.clear()
     if not dist.is_initialized():
         return True
     pg = weakref.ref(dist.group.WORLD)

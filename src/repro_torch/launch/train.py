@@ -16,9 +16,9 @@ reduced same-family config on the CPU).  Fault tolerance:
    the current step, exit 0 (without one, as in the reference, the run
    goes on).
 
-`--model-axis` other than 1 (tensor parallelism) raises: the sharded
-layouts are not ported yet (ROADMAP.md, queue 1: `parallel/sharding.py`
-and `--model-axis`).
+`--model-axis` other than 1 (tensor parallelism) raises: serving is
+sharded (`parallel/sharding.py`), training not yet (ROADMAP.md, queue
+1: training under sharding).
 """
 from __future__ import annotations
 
@@ -51,9 +51,9 @@ def main(argv=None) -> int:
     args = parse_args(argv)
     if args.model_axis != 1:
         raise NotImplementedError(
-            f"--model-axis {args.model_axis}: tensor parallelism is not "
-            "ported yet (ROADMAP.md, queue 1: parallel/sharding.py and "
-            "--model-axis); train on one device with --model-axis 1")
+            f"--model-axis {args.model_axis}: tensor parallelism in "
+            "training is not ported yet (ROADMAP.md, queue 1: training "
+            "under sharding); train on one device with --model-axis 1")
 
     from ..configs import get_config, get_smoke_config
     from ..device import resolve_device

@@ -14,6 +14,17 @@ Self- and cross-attention in prefill go through kernel K4
 (`sdpa_any`); decode attention is plain PyTorch, as it is plain XLA in
 the reference.  The projections, the MLP and the lm_head are
 `torch.matmul`, as the reference leaves them to XLA.
+
+Under a serving step's grid (`parallel.tp`) a layer's weights may hold
+only this rank's part (`parallel.sharding.partition`): wq / wk / wv
+their heads' columns (column-parallel), wo and the MLP's down
+projection their rows (row-parallel, followed by an all_reduce over
+the model axis).  The head counts come from the weights' shapes, so
+the one-device path is the same code with every part whole.  Where the
+KV heads do not divide the model axis, wk / wv stay whole and a rank
+picks the KV heads its query heads read (`_local_kv`).  Decode
+attention over a cache split along the sequence is flash-decoding
+(`_attention_decode_seq`).
 """
 from __future__ import annotations
 
@@ -23,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops
+from ..parallel import tp
 
 Params = dict
 
@@ -41,6 +53,14 @@ def init_dense(gen: torch.Generator, d_in: int, d_out: int,
 
 def dense(p: Params, x: torch.Tensor, dtype) -> torch.Tensor:
     return x @ cast(p["w"], dtype)
+
+
+def dense_rows(p: Params, x: torch.Tensor, dtype, n_in: int) -> torch.Tensor:
+    """`dense` of a row-parallel weight: where this rank holds fewer
+    than its `n_in` rows (x holds the matching columns), the partial
+    products are summed over the model axis."""
+    y = dense(p, x, dtype)
+    return tp.all_reduce(y) if p["w"].shape[0] < n_in else y
 
 
 def init_rmsnorm(d: int, device=None):
@@ -126,10 +146,13 @@ def init_mlp(gen: torch.Generator, d: int, ff: int, device=None):
     }
 
 
-def swiglu_mlp(p: Params, x: torch.Tensor, dtype) -> torch.Tensor:
+def swiglu_mlp(p: Params, x: torch.Tensor, dtype, d_ff: int = 0
+               ) -> torch.Tensor:
+    """SwiGLU; with `d_ff`, gate / up may hold their columns of it and
+    down its rows (then summed over the model axis)."""
     g = dense(p["gate"], x, dtype)
     u = dense(p["up"], x, dtype)
-    return dense(p["down"], F.silu(g) * u, dtype)
+    return dense_rows(p["down"], F.silu(g) * u, dtype, d_ff)
 
 
 # ------------------------------------------------------------- attention
@@ -151,8 +174,14 @@ def _split_heads(x: torch.Tensor, n: int, hd: int) -> torch.Tensor:
     return x.reshape(x.shape[:-1] + (n, hd))
 
 
+def _heads(p, hd) -> tuple[int, int]:
+    """(query heads, KV heads) this rank's weights hold."""
+    return p["wq"]["w"].shape[1] // hd, p["wk"]["w"].shape[1] // hd
+
+
 def _qkv(p, x, cfg, dtype, positions=None, positions3=None):
-    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    hd = cfg.head_dim
+    H, K = _heads(p, hd)
     q = _split_heads(dense(p["wq"], x, dtype), H, hd)
     k = _split_heads(dense(p["wk"], x, dtype), K, hd)
     v = _split_heads(dense(p["wv"], x, dtype), K, hd)
@@ -207,6 +236,25 @@ def flash_eligible(q, k) -> bool:
     return Sq == k.shape[1] and Sq % 512 == 0 and hd <= 128
 
 
+def _local_kv(q, k, v, cfg):
+    """k / v reduced to the KV heads this rank's query heads read.
+    Where the query heads are split over the model axis and the KV
+    heads are not (K % M != 0), model rank r's heads r·H/M + i read KV
+    head (r·H/M + i) // G: a block of KV heads when G divides H/M, one
+    KV head when H/M divides G, else one per query head (G = 1 then)."""
+    Hl, Kl = q.shape[2], k.shape[2]
+    H = cfg.n_heads
+    if Hl == H or Kl < cfg.n_kv_heads:
+        return k, v
+    G = H // cfg.n_kv_heads
+    first = tp.active().model_rank * Hl
+    if Hl % G == 0 or G % Hl == 0:
+        lo, n = first // G, max(Hl // G, 1)
+        return k[:, :, lo:lo + n], v[:, :, lo:lo + n]
+    idx = (first + torch.arange(Hl, device=k.device)) // G
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
 def sdpa_any(q, k, v, *, causal: bool, q_chunk: int = 0,
              flash: bool = False):
     """Dispatch: flash kernel K4 (serving) → chunked → plain.  Shapes
@@ -222,9 +270,17 @@ def sdpa_any(q, k, v, *, causal: bool, q_chunk: int = 0,
 def attention(p: Params, x, cfg, dtype, *, causal=True, positions=None,
               positions3=None, q_chunk: int = 0, flash: bool = False):
     q, k, v = _qkv(p, x, cfg, dtype, positions, positions3)
+    k, v = _local_kv(q, k, v, cfg)
     out = sdpa_any(q, k, v, causal=causal, q_chunk=q_chunk, flash=flash)
-    B, S = x.shape[:2]
-    return dense(p["wo"], out.reshape(B, S, -1), dtype)
+    return out_proj(p, out, cfg, dtype)
+
+
+def out_proj(p: Params, out, cfg, dtype):
+    """wo over the attention output [B, S, heads, hd] (row-parallel
+    where the heads are split)."""
+    B, S = out.shape[:2]
+    return dense_rows(p["wo"], out.reshape(B, S, -1), dtype,
+                      cfg.n_heads * cfg.head_dim)
 
 
 def cross_attention(p: Params, x, enc_kv, cfg, dtype, *, q_chunk: int = 0,
@@ -232,17 +288,18 @@ def cross_attention(p: Params, x, enc_kv, cfg, dtype, *, q_chunk: int = 0,
     """x [B, Sq, d]; enc_kv = (k, v) precomputed from the encoder output
     (`enc_kv`).  Bidirectional, no RoPE; K4 under the same rule as
     self-attention (Sq == Sk, a multiple of 512)."""
-    H, hd = cfg.n_heads, cfg.head_dim
-    q = _split_heads(dense(p["wq"], x, dtype), H, hd)
-    k, v = enc_kv
+    hd = cfg.head_dim
+    q = _split_heads(dense(p["wq"], x, dtype), _heads(p, hd)[0], hd)
+    k, v = _local_kv(q, *enc_kv, cfg)
     out = sdpa_any(q, k, v, causal=False, q_chunk=q_chunk, flash=flash)
-    B, S = x.shape[:2]
-    return dense(p["wo"], out.reshape(B, S, -1), dtype)
+    return out_proj(p, out, cfg, dtype)
 
 
 def enc_kv(p: Params, enc_out, cfg, dtype):
-    """Cross-attention K and V [B, S_enc, K, hd] of the encoder output."""
-    K, hd = cfg.n_kv_heads, cfg.head_dim
+    """Cross-attention K and V [B, S_enc, K, hd] of the encoder output
+    (this rank's KV heads)."""
+    hd = cfg.head_dim
+    K = _heads(p, hd)[1]
     k = _split_heads(dense(p["wk"], enc_out, dtype), K, hd)
     v = _split_heads(dense(p["wv"], enc_out, dtype), K, hd)
     return k, v
@@ -259,29 +316,88 @@ def attention_decode(p: Params, x, cache_k, cache_v, pos, cfg, dtype,
     Writes this token's K/V into the caches IN PLACE (the reference
     returns updated copies; its caller donates the old ones) and returns
     (out, cache_k, cache_v).  A write position past the cache is clamped
-    to its last cell, as `lax.dynamic_update_slice` clamps."""
+    to its last cell, as `lax.dynamic_update_slice` clamps.  Under a
+    grid whose cache is split along the sequence the step is
+    `_attention_decode_seq`; a head-split cache holds this rank's KV
+    heads."""
+    ctx = tp.active()
+    if ctx is not None and ctx.kv == "seq":
+        return _attention_decode_seq(p, x, cache_k, cache_v, pos, cfg, dtype,
+                                     positions3)
     B = x.shape[0]
-    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    hd = cfg.head_dim
     S = cache_k.shape[1]
-    pos = torch.as_tensor(pos, dtype=torch.long, device=x.device)
-    per_row = pos.dim() == 1
-    posv = pos[:, None] if per_row else pos.expand(B, 1)
-    if cfg.mrope and positions3 is None:
-        positions3 = posv[:, None, :].expand(B, 3, 1)
-    q, k, v = _qkv(p, x, cfg, dtype, posv, positions3)
+    q, k, v, posv = _decode_qkv(p, x, pos, cfg, dtype, positions3)
     at = posv[:, 0].clamp(0, S - 1)
     rows = torch.arange(B, device=x.device)
     cache_k[rows, at] = k[:, 0].to(cache_k.dtype)
     cache_v[rows, at] = v[:, 0].to(cache_v.dtype)
+    ck, cv = _local_kv(q, cache_k, cache_v, cfg)
+    H, K = q.shape[2], ck.shape[2]
     G = H // K
     qh = q.reshape(B, 1, K, G, hd)
     scores = torch.einsum("bqkgh,bskh->bkgqs", qh,
-                          cast(cache_k, dtype)) / math.sqrt(hd)
+                          cast(ck, dtype)) / math.sqrt(hd)
     scores = scores.float()
     # [B,1,1,1,S] per-row causal horizon (broadcasts over heads/groups)
     mask = (torch.arange(S, device=x.device)[None, :] <= posv)
     scores = scores.masked_fill(~mask[:, None, None, None, :], float("-inf"))
     w = torch.softmax(scores, dim=-1).to(dtype)
-    out = torch.einsum("bkgqs,bskh->bqkgh", w, cast(cache_v, dtype))
-    out = out.reshape(B, 1, H * hd)
-    return dense(p["wo"], out, dtype), cache_k, cache_v
+    out = torch.einsum("bkgqs,bskh->bqkgh", w, cast(cv, dtype))
+    return out_proj(p, out.reshape(B, 1, H, hd), cfg, dtype), cache_k, cache_v
+
+
+def _decode_qkv(p, x, pos, cfg, dtype, positions3):
+    """The decode token's q, k, v and its positions [B, 1]."""
+    B = x.shape[0]
+    pos = torch.as_tensor(pos, dtype=torch.long, device=x.device)
+    posv = pos[:, None] if pos.dim() == 1 else pos.expand(B, 1)
+    if cfg.mrope and positions3 is None:
+        positions3 = posv[:, None, :].expand(B, 3, 1)
+    q, k, v = _qkv(p, x, cfg, dtype, posv, positions3)
+    return q, k, v, posv
+
+
+def _attention_decode_seq(p, x, cache_k, cache_v, pos, cfg, dtype,
+                          positions3):
+    """Decode over a cache split along the sequence (flash-decoding;
+    `choose_kv_spec` picks it where the KV heads do not divide the
+    model axis, so wk / wv are whole): model rank r holds positions
+    [r·S, (r+1)·S) of every KV head, and only the owner of `pos`
+    writes the new K/V.  Every rank attends all H query heads (gathered
+    over the model axis) over its slice; the partial softmaxes combine
+    through an all_reduce MAX of the row maxima and one SUM of the
+    rescaled sums and outputs.  Then wo takes this rank's heads' rows,
+    summed over the model axis."""
+    ctx = tp.active()
+    B, hd = x.shape[0], cfg.head_dim
+    S = cache_k.shape[1]
+    off = ctx.model_rank * S
+    q, k, v, posv = _decode_qkv(p, x, pos, cfg, dtype, positions3)
+    Hl = q.shape[2]
+    at = posv[:, 0].clamp(0, S * ctx.model - 1) - off
+    own = (at >= 0) & (at < S)
+    rows = torch.arange(B, device=x.device)[own]
+    cache_k[rows, at[own]] = k[own, 0].to(cache_k.dtype)
+    cache_v[rows, at[own]] = v[own, 0].to(cache_v.dtype)
+    q = tp.all_gather(q, dim=2)                       # [B, 1, H, hd]
+    H, K = q.shape[2], cache_k.shape[2]
+    qh = q.reshape(B, 1, K, H // K, hd)
+    scores = torch.einsum("bqkgh,bskh->bkgqs", qh,
+                          cast(cache_k, dtype)) / math.sqrt(hd)
+    scores = scores.float()                           # [B, K, G, 1, S]
+    mask = (off + torch.arange(S, device=x.device))[None, :] <= posv
+    scores = scores.masked_fill(~mask[:, None, None, None, :], float("-inf"))
+    # position 0 lies on rank 0, so every row's global maximum is finite
+    m = tp.all_max(scores.amax(dim=-1, keepdim=True))
+    e = torch.exp(scores - m)
+    part = torch.cat([
+        e.sum(dim=-1).reshape(B, -1),
+        torch.einsum("bkgqs,bskh->bkgh", e, cache_v.float()).reshape(B, -1)],
+        dim=1)
+    part = tp.all_reduce(part)
+    out = part[:, H:].reshape(B, K, H // K, hd) / part[:, :H].reshape(
+        B, K, H // K, 1)
+    mine = out.reshape(B, 1, H, hd)[:, :, ctx.model_rank * Hl:
+                                    (ctx.model_rank + 1) * Hl]
+    return out_proj(p, mine.to(dtype), cfg, dtype), cache_k, cache_v

@@ -9,13 +9,20 @@ keeps fp32 matmuls out of TF32 unless a caller allows it, and nothing
 in the port does).
 
 Decode is the O(1) recurrent update: h ← a·h + dt·x⊗B, y = C·h + D·x.
+
+Under a grid a rank may hold its heads' part of a block
+(`parallel.sharding.partition`: z, x, dt, A_log, D, dt_bias, the norm
+scale and x's conv channels by heads, the B/C group whole): the widths
+come from the weights, the gated norm's mean over d_inner sums over
+the model axis and out_proj is row-parallel.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from .layers import Params, dense, init_dense
+from ..parallel import tp
+from .layers import Params, dense, dense_rows, init_dense
 
 
 def init_mamba(gen: torch.Generator, cfg, device=None) -> Params:
@@ -40,8 +47,12 @@ def init_mamba(gen: torch.Generator, cfg, device=None) -> Params:
     }
 
 
-def _split_proj(cfg, zxbcdt):
-    di, ds = cfg.d_inner, cfg.ssm_state
+def _widths(p: Params, cfg) -> tuple[int, int]:
+    """(d_inner, heads) this rank's block holds."""
+    return p["norm"].shape[0], p["A_log"].shape[0]
+
+
+def _split_proj(di, ds, zxbcdt):
     z = zxbcdt[..., :di]
     xBC = zxbcdt[..., di:2 * di + 2 * ds]
     dt = zxbcdt[..., 2 * di + 2 * ds:]
@@ -68,9 +79,14 @@ def _causal_conv(xBC, w, b, *, state=None):
     return out, new_state
 
 
-def _gated_norm(y, z, scale, eps):
+def _gated_norm(y, z, scale, eps, d_inner):
+    """RMS norm of y·silu(z) over d_inner (summed over the model axis
+    where y holds this rank's channels of it)."""
     y32 = y.float() * F.silu(z.float())
-    var = y32.square().mean(dim=-1, keepdim=True)
+    if y.shape[-1] < d_inner:
+        var = tp.all_reduce(y32.square().sum(dim=-1, keepdim=True)) / d_inner
+    else:
+        var = y32.square().mean(dim=-1, keepdim=True)
     return (y32 * torch.rsqrt(var + eps) * scale).to(y.dtype)
 
 
@@ -79,11 +95,12 @@ def mamba_block(p: Params, x, cfg, dtype, *, initial_state=None):
     "conv" fp32 [B, cw-1, conv_dim]}).  S must be a multiple of
     min(ssm_chunk, S); `initial_state` continues a sequence."""
     B, S, _ = x.shape
-    di, ds, nh, hd = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    ds, hd = cfg.ssm_state, cfg.ssm_head_dim
+    di, nh = _widths(p, cfg)
     Q = min(cfg.ssm_chunk, S)
     if S % Q:
         raise ValueError(f"sequence {S} is not a multiple of the chunk {Q}")
-    z, xBC, dt = _split_proj(cfg, dense(p["in_proj"], x, dtype))
+    z, xBC, dt = _split_proj(di, ds, dense(p["in_proj"], x, dtype))
     xBC, conv_state = _causal_conv(
         xBC, p["conv_w"], p["conv_b"],
         state=None if initial_state is None else initial_state["conv"])
@@ -126,17 +143,19 @@ def mamba_block(p: Params, x, cfg, dtype, *, initial_state=None):
                            torch.exp(seg))
     y = (y_intra + y_inter).reshape(B, S, nh, hd)
     y = y + xs.float() * p["D"][:, None]
-    y = _gated_norm(y.reshape(B, S, di).to(dtype), z, p["norm"], cfg.norm_eps)
+    y = _gated_norm(y.reshape(B, S, di).to(dtype), z, p["norm"], cfg.norm_eps,
+                    cfg.d_inner)
     state = {"h": h, "conv": conv_state.float()}
-    return dense(p["out_proj"], y, dtype), state
+    return dense_rows(p["out_proj"], y, dtype, cfg.d_inner), state
 
 
 def mamba_decode_step(p: Params, x, state, cfg, dtype):
     """x [B, 1, d]; state {"h": [B, nh, hd, ds], "conv": [B, cw-1,
     conv_dim]} → (y [B, 1, d], new state: h fp32, conv in `dtype`)."""
     B = x.shape[0]
-    di, ds, nh, hd = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
-    z, xBC, dt = _split_proj(cfg, dense(p["in_proj"], x, dtype))
+    ds, hd = cfg.ssm_state, cfg.ssm_head_dim
+    di, nh = _widths(p, cfg)
+    z, xBC, dt = _split_proj(di, ds, dense(p["in_proj"], x, dtype))
     xBC, conv_state = _causal_conv(xBC, p["conv_w"], p["conv_b"],
                                    state=state["conv"])
     xs = xBC[..., :di].reshape(B, nh, hd).float()
@@ -148,14 +167,17 @@ def mamba_decode_step(p: Params, x, state, cfg, dtype):
     h = state["h"].float() * a[:, :, None, None] + upd
     y = torch.einsum("bhps,bs->bhp", h, Cm)
     y = y + xs * p["D"][None, :, None]
-    y = _gated_norm(y.reshape(B, 1, di).to(dtype), z, p["norm"], cfg.norm_eps)
-    return dense(p["out_proj"], y, dtype), {"h": h, "conv": conv_state}
+    y = _gated_norm(y.reshape(B, 1, di).to(dtype), z, p["norm"], cfg.norm_eps,
+                    cfg.d_inner)
+    return (dense_rows(p["out_proj"], y, dtype, cfg.d_inner),
+            {"h": h, "conv": conv_state})
 
 
-def init_mamba_state(cfg, batch: int, device=None):
-    """Zeroed decode state, fp32 (as the reference's)."""
-    nh, hd, ds = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
-    conv_dim = cfg.d_inner + 2 * ds
+def init_mamba_state(cfg, batch: int, device=None, model: int = 1):
+    """Zeroed decode state, fp32 (as the reference's); `model` > 1
+    sizes one rank's heads of it."""
+    nh, hd, ds = cfg.ssm_heads // model, cfg.ssm_head_dim, cfg.ssm_state
+    conv_dim = cfg.d_inner // model + 2 * ds
     f32 = dict(dtype=torch.float32, device=device)
     return {"h": torch.zeros((batch, nh, hd, ds), **f32),
             "conv": torch.zeros((batch, cfg.conv_width - 1, conv_dim), **f32)}

@@ -18,6 +18,15 @@ Nothing here adds floats through atomics: `moe_sorted` combines each
 token's k expert outputs by a gather, summed one expert after another
 in increasing expert id — the order in which the reference's
 scatter-add visits them — so two prefills on one card are bit-equal.
+
+Expert parallelism: under a grid a rank may hold E/M of the experts
+(`parallel.sharding.partition`); the router stays whole, in fp32.
+Each rank adds its experts' share of every token's output, and the
+shares are summed over the model axis.  The capacity C and the drops
+stay those of the whole batch, as the reference's (GSPMD sees global
+shapes): where the batch is split over the data axis, every rank
+gathers the routing (N·k expert ids) over it and takes the same keep
+decision.
 """
 from __future__ import annotations
 
@@ -26,6 +35,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..parallel import tp
 from .layers import Params, cast, init_dense
 
 
@@ -70,17 +80,31 @@ def _experts(xb, p: Params, dtype):
     return torch.bmm(F.silu(g) * u, cast(p["down"], dtype))
 
 
+def _local_experts(p: Params, cfg) -> tuple[int, int]:
+    """(first expert id, experts) this rank holds."""
+    El = p["gate"].shape[0]
+    return (0 if El == cfg.n_experts else tp.active().model_rank * El), El
+
+
+def _summed(out: torch.Tensor, p: Params, cfg) -> torch.Tensor:
+    """Every rank's experts' shares of `out` summed over the model axis
+    (where the experts are split)."""
+    return out if p["gate"].shape[0] == cfg.n_experts else tp.all_reduce(out)
+
+
 def moe_dense(p: Params, x: torch.Tensor, cfg, dtype):
     """Reference dispatch: all experts on all tokens.  x [B, S, d] →
     (out [B, S, d], aux)."""
     B, S, d = x.shape
     xf = x.reshape(-1, d)
     w, idx, aux = _route(p, xf, cfg, dtype)
-    E = cfg.n_experts
-    y = _experts(xf.unsqueeze(0).expand(E, -1, -1), p, dtype)   # [E, N, d]
-    sel = y[idx, torch.arange(xf.shape[0], device=x.device)[:, None]]
-    out = torch.einsum("nkd,nk->nd", sel, w)
-    return out.reshape(B, S, d), aux
+    lo, El = _local_experts(p, cfg)
+    y = _experts(xf.unsqueeze(0).expand(El, -1, -1), p, dtype)  # [El, N, d]
+    mine = (idx >= lo) & (idx < lo + El)
+    sel = y[(idx - lo).clamp(0, El - 1),
+            torch.arange(xf.shape[0], device=x.device)[:, None]]
+    out = torch.einsum("nkd,nk->nd", sel, w * mine.to(w.dtype))
+    return _summed(out.reshape(B, S, d), p, cfg), aux
 
 
 def capacity(N: int, cfg) -> int:
@@ -109,23 +133,50 @@ def dispatch(idx: torch.Tensor, cfg):
     return order, token, keep, slot, C
 
 
+def _keep(idx: torch.Tensor, whole: torch.Tensor, cfg) -> torch.Tensor:
+    """Whether each token-major pair of `idx` [N, k] keeps its place
+    under `dispatch`'s capacity, decided over the whole batch's routing
+    `whole` (`idx` itself, or every data rank's gathered)."""
+    order, _, kept, _, _ = dispatch(whole, cfg)
+    keep = torch.empty_like(kept)
+    keep[order] = kept
+    if whole.shape[0] == idx.shape[0]:
+        return keep
+    first = tp.active().grid.data_rank * idx.numel()
+    return keep[first:first + idx.numel()]
+
+
 def moe_sorted(p: Params, x: torch.Tensor, cfg, dtype):
     """Sort-based dispatch with per-expert capacity C (`capacity`):
     within each expert, pairs keep their token order and those of rank
-    ≥ C drop (`dispatch`).  x [B, S, d] → (out [B, S, d], aux)."""
+    ≥ C drop (`dispatch`).  x [B, S, d] → (out [B, S, d], aux).  A
+    rank's kept pairs on its experts fill its buckets [El·C, d]."""
     B, S, d = x.shape
-    E, k = cfg.n_experts, cfg.top_k
+    k = cfg.top_k
     xf = x.reshape(-1, d)
     N = xf.shape[0]
     w, idx, aux = _route(p, xf, cfg, dtype)
-    order, token, keep, slot, C = dispatch(idx, cfg)
+    whole = tp.gather_batch(idx)
+    C = capacity(whole.shape[0], cfg)
+    lo, El = _local_experts(p, cfg)
+    flat = idx.reshape(-1)
+    mine = _keep(idx, whole, cfg) & (flat >= lo) & (flat < lo + El)
+    # pairs on another rank's experts, or dropped, sort past the
+    # buckets (into the spare expert El) and write the spare row
+    se, order = torch.sort(torch.where(mine, flat - lo, El), stable=True)
+    token = torch.arange(N, device=x.device).repeat_interleave(k)[order]
+    counts = torch.bincount(se, minlength=El + 1)
+    rank = torch.arange(N * k, device=x.device) - (torch.cumsum(counts, 0)
+                                                   - counts)[se]
+    keep = se < El
+    slot = torch.where(keep, se * C + rank, El * C)
 
-    # one spare row past the buckets takes every dropped pair's write
-    buckets = torch.zeros((E * C + 1, d), dtype=dtype, device=x.device)
+    buckets = torch.zeros((El * C + 1, d), dtype=dtype, device=x.device)
     buckets[slot] = cast(xf[token], dtype)
-    y = _experts(buckets[:E * C].reshape(E, C, d), p, dtype).reshape(E * C, d)
+    y = _experts(buckets[:El * C].reshape(El, C, d), p, dtype).reshape(
+        El * C, d)
 
-    gathered = y[slot.clamp_max(E * C - 1)]                  # [N*k, d]
+    gathered = y[slot.clamp_max(El * C - 1)]                 # [N*k, d]
     gathered = torch.where(keep[:, None], gathered, 0)
     # back to token-major pairs, then each token's experts by id
     pairs = torch.empty_like(gathered)
@@ -136,4 +187,4 @@ def moe_sorted(p: Params, x: torch.Tensor, cfg, dtype):
     out = pairs[:, 0]
     for j in range(1, k):
         out = out + pairs[:, j]
-    return out.reshape(B, S, d), aux
+    return _summed(out.reshape(B, S, d), p, cfg), aux

@@ -35,6 +35,16 @@ and the reference's `loss_fn` passes no `flash` either.  With `remat`
 each decoder layer is recomputed in the backward pass
 (`torch.utils.checkpoint`), where the reference rematerializes each
 scanned superblock: the math is the same.
+
+Tensor parallelism (serving, under `parallel.tp`): a rank's tree holds
+its part of each leaf (`convert.shard_params`, or `init(...,
+shard=)`).  The embedding is vocabulary-parallel where the vocabulary
+divides the model axis (a rank looks up its rows, zeros elsewhere,
+summed over the model axis), the logits are gathered along the
+vocabulary so every rank takes the same argmax, and the layers split
+as `layers`, `moe` and `mamba2` say.  A leaf a rule leaves whole
+(granite-moe's vocabulary of 49,155) is replicated.  `init_cache(...,
+grid=)` sizes one rank's cache.
 """
 from __future__ import annotations
 
@@ -43,8 +53,10 @@ from typing import Callable
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel import tp
+from ..parallel.sharding import kv_layout, local_batch
 from . import layers as L
-from .layers import (Params, cast, dense, init_dense, init_mlp, init_rmsnorm,
+from .layers import (Params, cast, init_dense, init_mlp, init_rmsnorm,
                      rms_norm, swiglu_mlp)
 from .mamba2 import init_mamba, init_mamba_state, mamba_block, mamba_decode_step
 from .moe import init_moe, moe_dense, moe_sorted
@@ -118,7 +130,7 @@ def flash_calls(cfg) -> int:
 # ===========================================================================
 # init
 # ===========================================================================
-def init(cfg, seed: int = 0, device="cpu", cast=None) -> Params:
+def init(cfg, seed: int = 0, device="cpu", cast=None, shard=None) -> Params:
     """fp32 master weights from `seed`: embed normal·0.02, every dense
     projection normal/√d_in, lm_head normal·0.02, norms at 1, the MoE
     and Mamba leaves as `init_moe` / `init_mamba` draw them.  Drawn from
@@ -132,23 +144,35 @@ def init(cfg, seed: int = 0, device="cpu", cast=None) -> Params:
     `cast`, when given, maps each part (the embedding, the lm_head, one
     layer) right after it is drawn, so only one part's fp32 masters are
     alive at a time: serving passes `cast_params_for_serving`, and the
-    result equals casting the whole fp32 tree.  On the `meta` device
-    the tree has the shapes and dtypes and no storage."""
+    result equals casting the whole fp32 tree.  `shard`, when given,
+    then maps {name: part} (name "embed", "lm_head", "layers",
+    "encoder" or "cross"; a layer as a one-element list) to this rank's
+    part of it (`convert.shard_params`).  On the `meta` device the tree
+    has the shapes and dtypes and no storage."""
     device = torch.device(device)
     # on the meta device only shapes and dtypes exist (the counterpart of
     # the reference's `abstract_params`): there is nothing to draw
     gen = (None if device.type == "meta"
            else torch.Generator(device=device).manual_seed(seed))
-    put = cast if cast is not None else (lambda part: part)
+
+    def put(part, name):
+        if cast is not None:
+            part = cast(part)
+        if shard is None:
+            return part
+        if name in ("embed", "lm_head"):
+            return shard({name: part})[name]
+        return shard({name: [part]})[name][0]
+
     d = cfg.d_model
     params: Params = {
         "embed": put({"w": torch.randn((cfg.vocab, d), generator=gen,
-                                       device=device).mul_(0.02)}),
+                                       device=device).mul_(0.02)}, "embed"),
         "final_norm": init_rmsnorm(d, device),
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = put(init_dense(gen, d, cfg.vocab, scale=0.02,
-                                           device=device))
+                                           device=device), "lm_head")
     layers = []
     for mix, mlp in _kinds(cfg):
         lp = {"norm1": init_rmsnorm(d, device)}
@@ -160,19 +184,19 @@ def init(cfg, seed: int = 0, device="cpu", cast=None) -> Params:
             lp["norm2"] = init_rmsnorm(d, device)
             lp["mlp"] = (init_mlp(gen, d, cfg.d_ff, device) if mlp == "dense"
                          else init_moe(gen, cfg, device))
-        layers.append(put(lp))
+        layers.append(put(lp, "layers"))
     params["layers"] = layers
     if cfg.family == "encdec":
         params["encoder"] = [
             put({"norm1": init_rmsnorm(d, device),
                  "attn": L.init_attention(gen, cfg, device),
                  "norm2": init_rmsnorm(d, device),
-                 "mlp": init_mlp(gen, d, cfg.d_ff, device)})
+                 "mlp": init_mlp(gen, d, cfg.d_ff, device)}, "encoder")
             for _ in range(cfg.enc_layers)]
         params["enc_final_norm"] = init_rmsnorm(d, device)
         params["cross"] = [
             put({"norm": init_rmsnorm(d, device),
-                 "attn": L.init_attention(gen, cfg, device)})
+                 "attn": L.init_attention(gen, cfg, device)}, "cross")
             for _ in range(cfg.n_layers)]
     return params
 
@@ -189,9 +213,21 @@ def _embed_in(cfg, params, batch, dtype):
     else:
         tokens = batch["tokens"]
         B, S = tokens.shape
-        x = cast(params["embed"]["w"], dtype)[tokens]
+        x = _lookup(cfg, params, tokens, dtype)
     positions = torch.arange(S, device=x.device).expand(B, S)
     return x, positions, batch.get("positions3")
+
+
+def _lookup(cfg, params, tokens, dtype):
+    """Token embeddings; vocabulary-parallel where this rank holds only
+    its block of the rows."""
+    w = cast(params["embed"]["w"], dtype)
+    V = w.shape[0]
+    if V == cfg.vocab:
+        return w[tokens]
+    local = tokens - tp.active().model_rank * V
+    hit = (local >= 0) & (local < V)
+    return tp.all_reduce(w[local.clamp(0, V - 1)] * hit[..., None].to(dtype))
 
 
 def _encoder(cfg, params, enc_embeds, dtype, q_chunk=0, flash=False):
@@ -205,7 +241,7 @@ def _encoder(cfg, params, enc_embeds, dtype, q_chunk=0, flash=False):
         x = x + L.attention(lp["attn"], a, cfg, dtype, causal=False,
                             q_chunk=q_chunk, flash=flash)
         m = rms_norm(lp["norm2"], x, cfg.norm_eps)
-        x = x + swiglu_mlp(lp["mlp"], m, dtype)
+        x = x + swiglu_mlp(lp["mlp"], m, dtype, cfg.d_ff)
     return rms_norm(params["enc_final_norm"], x, cfg.norm_eps)
 
 
@@ -216,7 +252,7 @@ def _mlp(cfg, lp, mlp, x, dtype, *, decode: bool):
         return x
     m = rms_norm(lp["norm2"], x, cfg.norm_eps)
     if mlp == "dense":
-        return x + swiglu_mlp(lp["mlp"], m, dtype)
+        return x + swiglu_mlp(lp["mlp"], m, dtype, cfg.d_ff)
     moe = moe_dense if decode else moe_sorted
     return x + moe(lp["mlp"], m, cfg, dtype)[0]
 
@@ -261,8 +297,9 @@ def _layer(cfg, kinds, lp, x, dtype, positions, positions3, q_chunk, flash):
     a = rms_norm(lp["norm1"], x, cfg.norm_eps)
     if mix == "attn":
         q, k, v = L._qkv(lp["attn"], a, cfg, dtype, positions, positions3)
-        o = L.sdpa_any(q, k, v, causal=True, q_chunk=q_chunk, flash=flash)
-        a = dense(lp["attn"]["wo"], o.reshape(*x.shape[:2], -1), dtype)
+        o = L.sdpa_any(q, *L._local_kv(q, k, v, cfg), causal=True,
+                       q_chunk=q_chunk, flash=flash)
+        a = L.out_proj(lp["attn"], o, cfg, dtype)
         entry = {"k": k, "v": v}
     else:
         a, entry = mamba_block(lp["ssm"], a, cfg, dtype)
@@ -282,11 +319,14 @@ def _backbone(cfg, params, x, dtype, positions, positions3, q_chunk=0,
 
 
 def _logits(cfg, params, x, dtype):
+    """x @ the output projection; where this rank holds a block of the
+    vocabulary, every rank's block gathered in order."""
     if cfg.tie_embeddings:
         w = cast(params["embed"]["w"], dtype).T
     else:
         w = cast(params["lm_head"]["w"], dtype)
-    return x @ w
+    y = x @ w
+    return y if y.shape[-1] == cfg.vocab else tp.all_gather(y, dim=-1)
 
 
 # ===========================================================================
@@ -346,21 +386,34 @@ def loss_fn(cfg, *, remat: bool = False, q_chunk: int = 0,
 
 # ------------------------------------------------------------- serving ----
 def init_cache(cfg, batch: int, max_seq: int, dtype=torch.bfloat16,
-               device="cpu"):
+               device="cpu", grid=None):
     """Decode cache: per layer a zeroed K and V [batch, max_seq, K, hd]
     in `dtype` (attention) or a zeroed fp32 Mamba state; encdec adds the
-    cross-attention K/V per decoder layer ("cross_kv")."""
-    kv = (batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+    cross-attention K/V per decoder layer ("cross_kv").  With `grid`,
+    one rank's part: its rows of the batch (`sharding.local_batch`), its
+    KV heads or its 1/M of the positions (`sharding.kv_layout`), its
+    Mamba heads, and the cross K/V's heads where they divide the model
+    axis."""
+    B, S, K, Kx, m = batch, max_seq, cfg.n_kv_heads, cfg.n_kv_heads, 1
+    if grid is not None:
+        m = grid.model
+        B = local_batch(batch, grid)[1]
+        layout = kv_layout(cfg, batch, max_seq, grid)
+        K = K // m if layout == "heads" else K
+        S = S // m if layout == "seq" else S
+        Kx = Kx // m if Kx % m == 0 else Kx
 
-    def zeros_kv():
-        return {"k": torch.zeros(kv, dtype=dtype, device=device),
-                "v": torch.zeros(kv, dtype=dtype, device=device)}
+    def zeros_kv(seq, heads):
+        shape = (B, seq, heads, cfg.head_dim)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
 
-    cache = {"layers": [zeros_kv() if mix == "attn"
-                        else init_mamba_state(cfg, batch, device)
+    cache = {"layers": [zeros_kv(S, K) if mix == "attn"
+                        else init_mamba_state(cfg, B, device, model=m)
                         for mix in layer_kinds(cfg)]}
     if cfg.family == "encdec":
-        cache["cross_kv"] = [zeros_kv() for _ in range(cfg.n_layers)]
+        cache["cross_kv"] = [zeros_kv(max_seq, Kx)
+                             for _ in range(cfg.n_layers)]
     return cache
 
 
@@ -375,7 +428,7 @@ def decode_fn(cfg) -> Callable:
     encdec = cfg.family == "encdec"
 
     def step(params, tokens, cache, pos):
-        h = cast(params["embed"]["w"], dtype)[tokens]          # [B,1,d]
+        h = _lookup(cfg, params, tokens, dtype)                # [B,1,d]
         for i, ((mix, mlp), lp, lc) in enumerate(zip(
                 kinds, params["layers"], cache["layers"])):
             a = rms_norm(lp["norm1"], h, cfg.norm_eps)

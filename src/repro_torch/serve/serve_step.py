@@ -1,8 +1,15 @@
-"""Serving steps on one device: prefill and single-token decode.
+"""Serving steps: prefill and single-token decode.
 
-Counterpart of `repro/serve/serve_step.py` without shardings (one
-device per process; the multi-GPU layout is a later slice).  Steps run
-eagerly under `torch.inference_mode`.
+Counterpart of `repro/serve/serve_step.py`.  Steps run eagerly under
+`torch.inference_mode`.  With a `grid` (`launch.mesh.make_grid`) the
+rank's params are its shard (`convert.shard_params`) and the step runs
+under `parallel.tp`: it takes the whole batch, keeps this rank's rows
+of it (`batch_specs` over the data axis), and returns the whole
+batch's logits (gathered over the data axis) beside this rank's part
+of the cache (`init_cache(..., grid=)`).  Decode caches are split as
+`parallel.sharding.choose_kv_spec` says: heads over the model axis
+when divisible, else the sequence (flash-decoding, for the MQA / GQA
+configs whose KV heads do not fill the axis).
 """
 from __future__ import annotations
 
@@ -10,6 +17,8 @@ import torch
 
 from ..device import resolve_device
 from ..models import transformer as T
+from ..parallel import tp
+from ..parallel.sharding import kv_layout, local_batch
 
 
 def cast_params_for_serving(params, dtype=torch.bfloat16):
@@ -31,12 +40,13 @@ def cast_params_for_serving(params, dtype=torch.bfloat16):
     return one(params)
 
 
-def make_prefill(cfg, device, *, q_chunk: int = 1024, flash: bool = True):
+def make_prefill(cfg, device, *, q_chunk: int = 1024, flash: bool = True,
+                 grid=None):
     """prefill(params, batch) -> (last-token logits [B, V] fp32, cache),
     on `device` (where params and batch must already lie).  Params are
     cast for serving first (free when they already are); `flash=False`
     takes the plain attention path, the yardstick K4 is checked
-    against."""
+    against.  With `grid`, as the module says."""
     base = T.prefill_fn(cfg, q_chunk=q_chunk, flash=flash)
     dtype = getattr(torch, cfg.dtype)
     device = resolve_device(device)
@@ -48,15 +58,24 @@ def make_prefill(cfg, device, *, q_chunk: int = 1024, flash: bool = True):
             if t.device != device:
                 raise ValueError(f"batch[{name!r}] on {t.device}, "
                                  f"prefill on {device}")
-        return base(params, batch)
+        if grid is None:
+            return base(params, batch)
+        B = next(iter(batch.values())).shape[0]
+        lo, n = local_batch(B, grid)
+        with tp.using(tp.Ctx(grid, cfg, batch_sharded=n < B)):
+            logits, cache = base(params, {k: t[lo:lo + n]
+                                          for k, t in batch.items()})
+            return tp.gather_batch(logits), cache
 
     return fn
 
 
-def make_decode(cfg, device):
+def make_decode(cfg, device, *, grid=None, batch: int = 0, max_seq: int = 0):
     """step(params, tokens [B,1], cache, pos) -> (logits [B,V], cache),
     on `device`; params are cast for serving first, and the cache
-    (`T.init_cache`) is updated in place."""
+    (`T.init_cache`) is updated in place.  With `grid`, as the module
+    says, for the cache of `batch` rows and `max_seq` positions; `pos`
+    (an int or [B]) is the whole batch's."""
     base = T.decode_fn(cfg)
     dtype = getattr(torch, cfg.dtype)
     device = resolve_device(device)
@@ -66,6 +85,17 @@ def make_decode(cfg, device):
         params = cast_params_for_serving(params, dtype)
         if tokens.device != device:
             raise ValueError(f"tokens on {tokens.device}, decode on {device}")
-        return base(params, tokens, cache, pos)
+        if ctx is None:
+            return base(params, tokens, cache, pos)
+        if torch.is_tensor(pos) and pos.dim() == 1:
+            pos = pos[lo:lo + n]
+        with tp.using(ctx):
+            logits, cache = base(params, tokens[lo:lo + n], cache, pos)
+            return tp.gather_batch(logits), cache
 
+    ctx = None
+    if grid is not None:
+        lo, n = local_batch(batch, grid)
+        ctx = tp.Ctx(grid, cfg, kv=kv_layout(cfg, batch, max_seq, grid),
+                     batch_sharded=n < batch)
     return fn

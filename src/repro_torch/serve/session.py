@@ -42,10 +42,21 @@ card beside its serving weights still starts), and the decode step
 updates the cache in place (the reference donates it).  `layers` cuts
 the decoder's depth (the encoder's stays), for a model that does not
 fit one card whole.
+
+Tensor parallelism: with `group` (a torch.distributed process group,
+one process per GPU) every rank of the group builds the same session
+and makes the same calls.  The ranks form a data × model grid
+(`launch.mesh.shared_grid(model_axis, group)`); each draws the same
+weights from the seed and keeps its shard of each part as it is drawn
+(`convert.shard_params`), holds its part of the cache, and sees the
+whole batch's logits, so every rank takes the same tokens.  Decode
+checkpoints are written per rank, under `rank<r>-of-<W>-model<M>/`;
+resuming under another grid raises.
 """
 from __future__ import annotations
 
 import contextlib
+import os
 
 import numpy as np
 import torch
@@ -53,6 +64,8 @@ import torch
 from ..device import resolve_device
 from ..kernels import ops
 from ..obs import get_tracer, timer
+from ..parallel import tp
+from ..parallel.sharding import kv_layout, local_batch
 
 
 def fake_prompts(cfg, B, S, seed: int, device="cpu"):
@@ -89,18 +102,22 @@ def _pairs(dst, src):
         yield dst, src
 
 
-def seed_cache(cache, prefill_cache, S):
+def seed_cache(cache, prefill_cache, S, offset: int = 0):
     """Copy prefill K/V (length S) into the front of the decode cache, in
-    place; returns `cache`.  The sequence axis is found structurally:
-    the first axis where the prefill leaf is shorter than the cache's."""
-    for dst, src in _pairs(cache, prefill_cache):
-        if src.shape == dst.shape:
-            dst.copy_(src)
-        elif dst.dim() >= 2 and src.dim() == dst.dim():
-            # K/V: [..., S, K, hd] into [..., max_seq, K, hd]
-            ax = next(i for i in range(dst.dim())
-                      if src.shape[i] != dst.shape[i])
-            dst.narrow(ax, 0, src.shape[ax]).copy_(src)
+    place; returns `cache`.  K/V leaves are [B, S, K, hd]; a Mamba state
+    is copied whole.  With `offset` the decode cache's self-attention
+    K/V begin at prompt position `offset` (a rank's block of positions
+    where the cache is split along the sequence)."""
+    for name, part in prefill_cache.items():
+        for dst_layer, src_layer in zip(cache[name], part, strict=True):
+            for key, src in src_layer.items():
+                dst = dst_layer[key]
+                if key not in ("k", "v"):
+                    dst.copy_(src)
+                    continue
+                off = offset if name == "layers" else 0
+                n = max(0, min(src.shape[1] - off, dst.shape[1]))
+                dst[:, :n].copy_(src[:, off:off + n])
     return cache
 
 
@@ -128,14 +145,17 @@ class LMSession:
 
     Parameters mirror `launch/serve.py`'s CLI.  `device` defaults to
     ``"cuda"`` and raises without a card; pass ``"cpu"`` to run the
-    plain PyTorch path on the CPU.
+    plain PyTorch path on the CPU.  `group` / `model_axis`: tensor
+    parallelism, as the module says.
     """
 
     def __init__(self, arch: str, *, smoke: bool = False, batch: int = 4,
                  prompt_len: int = 64, gen: int = 32, max_seq: int = 0,
                  device="cuda", seed: int = 0, ckpt_dir: str = "",
-                 ckpt_every: int = 0, metrics=None, layers: int = 0):
+                 ckpt_every: int = 0, metrics=None, layers: int = 0,
+                 group=None, model_axis: int = 1):
         from ..configs import get_config, get_smoke_config
+        from ..launch.mesh import shared_grid
 
         self.arch = arch
         self.cfg = get_smoke_config(arch) if smoke else get_config(arch)
@@ -146,6 +166,15 @@ class LMSession:
         self.S = prompt_len
         self.gen = gen
         self.max_seq = max_seq or (prompt_len + gen)
+        self.grid = (None if group is None and model_axis == 1
+                     else shared_grid(model_axis, group))
+        self._rows = (0, batch) if self.grid is None else local_batch(
+            batch, self.grid)
+        self._kv_offset = 0
+        if self.grid is not None and kv_layout(
+                self.cfg, batch, self.max_seq, self.grid) == "seq":
+            self._kv_offset = (self.grid.model_rank
+                               * (self.max_seq // self.grid.model))
         self.seed = seed
         self.ckpt_dir = ckpt_dir
         self.ckpt_every = ckpt_every
@@ -170,6 +199,7 @@ class LMSession:
         self.admitted = 0
         self.evicted = 0
         self.flash_launches = 0         # K4 launches by this session
+        self.prefill_collectives: dict = {}   # by kind, the batch prefill
 
     @contextlib.contextmanager
     def _counting_flash(self):
@@ -184,6 +214,7 @@ class LMSession:
         """Prefill — or, with `resume=True` and a checkpoint present,
         restore cache/tokens/step and skip the prefill entirely.
         Returns the restored step (None for a fresh start)."""
+        from ..convert import shard_params
         from ..models import transformer as T
         from .serve_step import cast_params_for_serving, make_decode
 
@@ -193,8 +224,11 @@ class LMSession:
             dtype = getattr(torch, self.cfg.dtype)
             self._params = T.init(
                 self.cfg, self.seed, self.device,
-                cast=lambda part: cast_params_for_serving(part, dtype))
-            self._decode = make_decode(self.cfg, self.device)
+                cast=lambda part: cast_params_for_serving(part, dtype),
+                shard=None if self.grid is None else (
+                    lambda part: shard_params(part, self.cfg, self.grid)))
+            self._decode = make_decode(self.cfg, self.device, grid=self.grid,
+                                       batch=self.B, max_seq=self.max_seq)
             ops.prepare_flash(self.device)
             _sync(self.device)
         restored = self._try_restore() if resume else None
@@ -228,18 +262,23 @@ class LMSession:
                                prompt_len=self.S):
             batch = fake_prompts(self.cfg, self.B, self.S, self.seed,
                                  self.device)
-            prefill = make_prefill(self.cfg, self.device, q_chunk=0)
+            prefill = make_prefill(self.cfg, self.device, q_chunk=0,
+                                   grid=self.grid)
+        before = dict(tp.calls)
         with get_tracer().span("lm.prefill", arch=self.arch, batch=self.B,
                                prompt_len=self.S), timer() as t, \
                 self._counting_flash():
             logits, prefill_cache = prefill(self._params, batch)
             _sync(self.device)
         self.prefill_seconds = t.seconds
+        self.prefill_collectives = {k: n - before[k]
+                                    for k, n in tp.calls.items()}
         with get_tracer().span("lm.cache_init", batch=self.B,
                                max_seq=self.max_seq):
             cache = T.init_cache(self.cfg, self.B, self.max_seq,
-                                 device=self.device)
-            self._cache = seed_cache(cache, prefill_cache, self.S)
+                                 device=self.device, grid=self.grid)
+            self._cache = seed_cache(cache, prefill_cache, self.S,
+                                     self._kv_offset)
         self._tokens = logits.argmax(dim=-1)[:, None]
         self._generated = [self._tokens.cpu().numpy().astype(np.int32)]
 
@@ -249,16 +288,18 @@ class LMSession:
 
         if not self.ckpt_dir:
             return None
-        step = ckpt.latest_step(self.ckpt_dir)
+        where = self._ckpt_path()
+        step = ckpt.latest_step(where)
         if step is None:
+            self._check_grid_of_checkpoints()
             return None
         tree_like = {
             "cache": T.init_cache(self.cfg, self.B, self.max_seq,
-                                  device="meta"),
+                                  device="meta", grid=self.grid),
             "tokens": torch.empty((self.B, 1), dtype=torch.long,
                                   device="meta"),
         }
-        tree, step = ckpt.restore(self.ckpt_dir, tree_like, step=step,
+        tree, step = ckpt.restore(where, tree_like, step=step,
                                   device=self.device)
         self._cache = tree["cache"]
         self._tokens = tree["tokens"]
@@ -266,6 +307,33 @@ class LMSession:
         # tokens_out() covers the resumed suffix only
         self._generated = [self._tokens.cpu().numpy().astype(np.int32)]
         return step
+
+    def _ckpt_path(self) -> str:
+        """This rank's checkpoint directory (`ckpt_dir` itself on one
+        device)."""
+        g = self.grid
+        if g is None:
+            return self.ckpt_dir
+        return os.path.join(self.ckpt_dir,
+                            f"rank{g.rank}-of-{g.size}-model{g.model}")
+
+    def _check_grid_of_checkpoints(self) -> None:
+        """Raise when `ckpt_dir` holds checkpoints of another grid (or of
+        one device, or per rank when this session runs on one)."""
+        if not os.path.isdir(self.ckpt_dir):
+            return
+        g = self.grid
+        ours = "" if g is None else f"-of-{g.size}-model{g.model}"
+        other = sorted(
+            n for n in os.listdir(self.ckpt_dir)
+            if (n.startswith("rank") and not (ours and n.endswith(ours)))
+            or (n == "LATEST" and g is not None))
+        if other:
+            raise ValueError(
+                f"{self.ckpt_dir} holds decode checkpoints of another grid "
+                f"({', '.join(other[:4])}); a serving checkpoint resumes "
+                f"only under the world and model axis that wrote it "
+                f"(here {ours[1:] if g else 'one device'})")
 
     # -------------------------------------------------------------- decode
     @property
@@ -316,7 +384,7 @@ class LMSession:
                 self.step_i += 1
                 if (self.ckpt_dir and self.ckpt_every
                         and self.step_i % self.ckpt_every == 0):
-                    ckpt.save(self.ckpt_dir, self.step_i,
+                    ckpt.save(self._ckpt_path(), self.step_i,
                               {"cache": self._cache, "tokens": self._tokens})
             _sync(self.device)
         self.decode_seconds += t.seconds
@@ -350,8 +418,10 @@ class LMSession:
         with get_tracer().span("lm.admit", slot=slot, seed=seed), \
                 timer() as t, self._counting_flash():
             row_cache, token = self._prefill_one(seed)
-            for dst, src in _pairs(self._cache, row_cache):
-                _scatter_row(dst, src, slot)
+            lo, n = self._rows          # this rank's rows of the batch
+            if lo <= slot < lo + n:
+                for dst, src in _pairs(self._cache, row_cache):
+                    _scatter_row(dst, src, slot - lo)
             self._tokens = self._tokens.clone()
             self._tokens[slot, 0] = token
             _sync(self.device)
@@ -388,11 +458,13 @@ class LMSession:
         from .serve_step import make_prefill
 
         if self._prefill1 is None:
-            self._prefill1 = make_prefill(self.cfg, self.device, q_chunk=0)
+            self._prefill1 = make_prefill(self.cfg, self.device, q_chunk=0,
+                                          grid=self.grid)
         batch = fake_prompts(self.cfg, 1, self.S, seed, self.device)
         logits, prefill_cache = self._prefill1(self._params, batch)
-        cache1 = T.init_cache(self.cfg, 1, self.max_seq, device=self.device)
-        cache1 = seed_cache(cache1, prefill_cache, self.S)
+        cache1 = T.init_cache(self.cfg, 1, self.max_seq, device=self.device,
+                              grid=self.grid)
+        cache1 = seed_cache(cache1, prefill_cache, self.S, self._kv_offset)
         token = int(logits.argmax(dim=-1)[0])
         return cache1, token
 

@@ -30,6 +30,13 @@ as one dispatch unit of its round, on every rank alike.  Only
 `run_pending` is mirrored: rank 0 calls `plan()` (a collective on a
 miss) only inside rounds, and every rank calls `warm_from_disk()`
 itself before serving.
+
+The LM tenant spans the ranks too (tensor parallelism: every rank
+holds its shard of one `LMSession` and the steps are collectives).
+Rank 0's session is wrapped in a `LeaderSession`, which broadcasts
+each call that moves the session (start, decode steps, admit, evict)
+as a `Round` that runs no graph round, before making it; a follower
+makes the same call on its own shard, so the collectives pair up.
 """
 from __future__ import annotations
 
@@ -40,7 +47,7 @@ from ..obs import get_tracer, timer
 from ..query import QueryEngine, Ticket
 from .rpc import KEEPALIVE_S
 
-__all__ = ["Follower", "LeaderEngine", "Round"]
+__all__ = ["Follower", "LeaderEngine", "LeaderSession", "Round"]
 
 LEADER = 0                        # the rank that owns the queue
 
@@ -51,13 +58,15 @@ class Round:
     last one — ``("admit", seq, request)``, ``("cancel", seq)``,
     ``("mutate", verb, edges)`` — and the round's arguments.  ``run``
     False is a heartbeat (the journal applies, no round runs); ``stop``
-    ends the followers."""
+    ends the followers.  ``lm`` = (method, args, kwargs) is a call each
+    follower makes on its LM session (with ``run`` False)."""
 
     journal: list = field(default_factory=list)
     limit: int | None = None
     max_dispatches: int | None = None
     run: bool = True
     stop: bool = False
+    lm: tuple | None = None
 
 
 class LeaderEngine(QueryEngine):
@@ -113,6 +122,10 @@ class LeaderEngine(QueryEngine):
         if not self.stopped and self._since_sent.seconds >= KEEPALIVE_S:
             self._send(Round(run=False))
 
+    def lm_call(self, method: str, *args, **kw) -> None:
+        """Have the followers call `method` on their LM session."""
+        self._send(Round(run=False, lm=(method, args, kw)))
+
     def stop(self) -> None:
         """End the followers' loops (once)."""
         if not self.stopped:
@@ -130,21 +143,47 @@ class LeaderEngine(QueryEngine):
         self._since_sent = timer().__enter__()
 
 
+class LeaderSession:
+    """Rank 0's LM session: each call that moves it is broadcast to the
+    followers first (`LeaderEngine.lm_call`); everything else reads the
+    session itself."""
+
+    MIRRORED = ("start", "decode_steps", "admit", "evict")
+
+    def __init__(self, session, engine: LeaderEngine):
+        self.session = session
+        self.engine = engine
+
+    def __getattr__(self, name):
+        attr = getattr(self.session, name)
+        if name not in self.MIRRORED:
+            return attr
+
+        def mirrored(*args, **kw):
+            self.engine.lm_call(name, *args, **kw)
+            return attr(*args, **kw)
+
+        return mirrored
+
+
 class Follower:
     """A non-zero rank's loop over its own `QueryEngine(group=)`: replay
-    rank 0's journal, run the same rounds, stop when told.  `tickets`
-    holds the replayed tickets in admission order; `rounds` counts the
-    rounds run."""
+    rank 0's journal, run the same rounds, make the same LM session
+    calls (`session`, its shard of rank 0's), stop when told.
+    `tickets` holds the replayed tickets in admission order; `rounds`
+    counts the rounds run, `lm_calls` the session calls."""
 
-    def __init__(self, engine: QueryEngine):
+    def __init__(self, engine: QueryEngine, session=None):
         if engine.tenant_depth is not None:
             raise ValueError("a follower's engine replays rank 0's "
                              "admissions; build it without tenant_depth")
         self.engine = engine
+        self.session = session
         self.tickets: list = []
         self._queued: dict[int, Ticket] = {}
         self.rounds = 0
         self.heartbeats = 0
+        self.lm_calls = 0
 
     def apply(self, journal) -> None:
         eng = self.engine
@@ -175,6 +214,11 @@ class Follower:
             self.apply(rnd.journal)
             if rnd.stop:
                 return self
+            if rnd.lm is not None:
+                method, args, kw = rnd.lm
+                getattr(self.session, method)(*args, **kw)
+                self.lm_calls += 1
+                continue
             if not rnd.run:
                 self.heartbeats += 1
                 continue
