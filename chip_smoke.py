@@ -31,8 +31,8 @@ run outside a checkout of this repository.  Phases, one line each:
     counts held to the reference oracle's values;
  4. full size, wiki-vote-syn (8,192 vertices, 79,597 edges): the
     triangle count on both paths; P1 on the kernel path under the
-    graphpi plan, the graphzero plan with its IEP tail and the naive
-    plan (÷ |Aut|); both paths on the roots v0 ∈ [96, 112),
+    graphpi plan and the graphzero plan with its IEP tail; both paths
+    on the roots v0 ∈ [96, 112),
     and that slice on the kernel path under torch.profiler with the
     graphpi and the graphzero IEP plans (device kernel time against
     unprofiled wall, K1's time per kernel, top kernels; the
@@ -40,7 +40,9 @@ run outside a checkout of this repository.  Phases, one line each:
     plan with the mask levels run by the composition the
     mask-and-compact entry replaced and by the entry, alternated, in
     one process (`k1_mask_walls`).  Then small-rmat: P1 under
-    the graphpi, graphzero and naive plans, enum and IEP, on both paths;
+    the graphpi, graphzero and naive plans (÷ |Aut|), enum and IEP, on
+    the kernel path, and on the portable path under the graphpi plan
+    and the graphzero IEP plan;
  5. K1's launches in the named main-path runs: mask and count in the
     wiki-vote-syn P1 graphpi count, signed in the graphzero IEP count;
  6. K1's time per launch on the largest real main-path launch of each
@@ -224,6 +226,22 @@ run outside a checkout of this repository.  Phases, one line each:
     ms/step and peak memory.  With 4 or more cards, qwen2-vl-72b whole
     at `--model-axis 4` under NCCL (a card per rank), 80 K4 launches a
     rank; with fewer, a line saying it was skipped.
+20. sharded LM training through `repro_torch.launch.train --model-axis`
+    (`TP_TRAIN_RUNS`, each rank in `tp_train_child`; batch 4 x 1,024,
+    remat, bf16, seed 0): launch A, 2 ranks sharing the card (gloo) at
+    model 2, trains qwen3-1.7b whole 3 steps (lr 3e-5), then
+    whisper-base whole 2 steps checkpointed and step 3 resumed at model
+    2, while this process resumes the checkpoint's copy on one device;
+    launch B, 4 ranks at data 2 x model 2 (ZeRO-3), granite-moe whole 2
+    steps, at the same time as launch A.  Every rank's metrics equal
+    and finite; qwen3's and
+    granite-moe's first steps within phase 18's limits (5e-3 / 2e-2) of
+    phase 18's one-device first step, whisper's one-device step 3
+    within them of the model-2 run's; per rank s/step, peak memory and
+    a step's collectives by kind and bytes.  With 4 or more cards,
+    jamba-v0.1-52b cut to 8 layers at model 4 and qwen2-vl-72b cut to 4
+    at data 2 x model 2, 2 steps each under NCCL (a card per rank);
+    with fewer, a line saying it was skipped.
 
 Every count of phases 3–4 sets K1's launch counters to 0 just before it
 and reads them just after; a kernel-path count must launch exactly the
@@ -246,7 +264,8 @@ phase 17 K4's, around each family's prefill and decode calls and each
 prefill compared, the family's flash-eligible calls per prefill; in
 phase 18 K4's, around each train step, none; in phase 19 each rank's
 K4 counters, around its served prefill and decode calls, its
-flash-eligible calls per prefill and none in decode.
+flash-eligible calls per prefill and none in decode; in phase 20 each
+rank's K4 counters, around each train step, none.
 
 Counts are integers and every comparison of phases 2–6 and 10–16 is
 exact (no tolerance).  The last two lines are the kernels record (K1's
@@ -259,8 +278,10 @@ runs; `gateway_sharded_launches`: the same in phase 16's gateway; K4's
 `family_launches`: its launches per prefill of each phase 17 family,
 `family_shapes`: phase 9's times at the families' shapes,
 `train_launches`: its launches in phase 18's train steps, 0,
-`train_launches_per_step` by arch, and `tp_launches`: its launches per
-rank per prefill in phase 19, by arch) and the device record (JSON).
+`train_launches_per_step` by arch, `tp_launches`: its launches per
+rank per prefill in phase 19, by arch, and `tp_train_launches`: its
+launches per rank per step in phase 20, by run) and the device record
+(JSON).
 """
 from __future__ import annotations
 
@@ -1489,10 +1510,10 @@ def graph_phases(card) -> list:
     house = get_pattern("P1")
     # Whole P1 counts on the kernel path under every distinct plan of
     # the graphpi mode, enum and IEP (graphpi folds no tail here, so its
-    # IEP plan is its enum plan), the graphzero IEP plan and the naive
-    # plan (÷ |Aut|).  The graphzero enum plan (~45 s here; its inner
-    # levels are its IEP plan's) is counted on small-rmat below only, so
-    # the script keeps to half its time limit with phase 15.
+    # IEP plan is its enum plan), and the graphzero IEP plan.  The
+    # graphzero enum plan (~45 s here; its inner levels are its IEP
+    # plan's) and the naive plan (~40 s) are counted on small-rmat below
+    # only, so the script keeps under its time limit with phase 20.
     # The graphpi count is the named run whose mask and count launches
     # the kernels line reports, the graphzero IEP count the one for
     # signed; phase 6 times the largest launch of each.
@@ -1500,7 +1521,7 @@ def graph_phases(card) -> list:
              ("graphzero", True): ("signed",)}
     main_launches, recorders, plans = {}, [], set()
     for mode, iep in (("graphpi", False), ("graphpi", True),
-                      ("graphzero", True), ("naive", False)):
+                      ("graphzero", True)):
         config, plan = plan_for(house, stats, mode=mode, use_iep=iep)
         if repr(plan) in plans:
             log(f"phase 4: P1 {mode}{' iep' if iep else ''}: same plan as "
@@ -1511,9 +1532,7 @@ def graph_phases(card) -> list:
         recorders.append(recorder)
         what = f"wiki-vote-syn P1 {mode}{' iep' if iep else ''} kernel"
         cnt, wall, disp, res, launches = count_on(
-            what, wiki, plan, cfgs["kernel"], arrays,
-            aut_divisor=house.aut_count() if mode == "naive" else 1,
-            during=recorder)
+            what, wiki, plan, cfgs["kernel"], arrays, during=recorder)
         for k in named.get((mode, iep), ()):
             main_launches[k] = (launches[k], what)
         log(f"phase 4: {what}: count={cnt} iep_k={config.iep_k} "
@@ -1545,7 +1564,10 @@ def graph_phases(card) -> list:
     # mask-and-compact entry replaced and by the entry, in turn.
     k1_mask_walls(card, roots=WIKI_ROOTS, want=part["kernel"], rounds=2,
                   setup=(wiki, arrays, cfgs["kernel"], stats))
-    # ---- 4b: small-rmat, every P1 plan on both paths gives one count
+    # ---- 4b: small-rmat, every P1 plan gives one count: on the kernel
+    # path, and on the portable path (~10 s a plan) under the graphpi
+    # plan and the graphzero IEP plan, whose folded tail is the
+    # portable path's other branch
     small = get_dataset("small-rmat")
     sarrays = device_graph(small, "cuda")
     scfgs = {path: ExecutorConfig(capacity=1 << 15,
@@ -1565,6 +1587,9 @@ def graph_phases(card) -> list:
             plans.add(repr(plan))
             div = plan.pattern.aut_count() if mode == "naive" else 1
             for path, cfg in scfgs.items():
+                if path == "portable" and (mode, iep) not in (
+                        ("graphpi", False), ("graphzero", True)):
+                    continue
                 what = f"small-rmat P1 {mode}{' iep' if iep else ''} {path}"
                 cnt, wall, disp, res, launches = count_on(
                     what, small, plan, cfg, sarrays, aut_divisor=div)
@@ -3733,8 +3758,9 @@ class TrainSteps:
     """Wraps `train_step.make_train_step` while open: each step's
     K4 counters are set to 0 just before it and read just after, and
     the step is synchronized and timed on the host clock; keeps each
-    step's record and the last step's function and arguments (for a
-    profile window after the run)."""
+    step's record (with the collectives it made, by kind: calls and
+    bytes) and the last step's function and arguments (for a profile
+    window after the run)."""
 
     def __init__(self):
         self.steps: list[dict] = []
@@ -3752,18 +3778,27 @@ class TrainSteps:
                 import torch
 
                 from repro_torch.kernels import ops
+                from repro_torch.parallel import tp
 
-                torch.cuda.synchronize()
+                cuda = torch.cuda.is_available()   # phase 20's CPU ranks
+                if cuda:
+                    torch.cuda.synchronize()
                 ops.reset_launches()
+                calls, moved = dict(tp.calls), dict(tp.moved)
                 t0 = time.perf_counter()
                 out = step(params, opt_state, batch)
-                torch.cuda.synchronize()
+                if cuda:
+                    torch.cuda.synchronize()
                 m = out[2]
                 self.steps.append({
                     "s": time.perf_counter() - t0,
                     "loss": float(m["loss"]), "grad_norm":
                     float(m["grad_norm"]), "lr": float(m["lr"]),
-                    "launches": dict(ops.launches)})
+                    "launches": dict(ops.launches),
+                    "collectives": {k: [tp.calls[k] - calls[k],
+                                        tp.moved[k] - moved[k]]
+                                    for k in tp.KINDS
+                                    if tp.calls[k] > calls[k]}})
                 self.last = (step, out[0], out[1], batch)
                 return out
             return recorded
@@ -3868,6 +3903,8 @@ def train_run(card, arch, steps, extra=(), profile_it=False) -> dict:
         f"train.main wall {wall:.1f} s on {card}")
     out = {"steady_s": steady, "peak_gib": peak, "losses": losses,
            "launches": [r["launches"]["flash"] for r in st]}
+    # phase 20 holds its sharded first steps against these
+    RESULTS[f"first step {arch}"] = (st[0]["loss"], st[0]["grad_norm"])
     if profile_it:
         out["profile"] = profile_train_step(
             rec.last, card, f"phase 18: {arch} profile")
@@ -4161,32 +4198,54 @@ def one_device_logits(arch, layers, device):
     return out
 
 
-def tp_launch(what, world, argv, timeout=TP_TIMEOUT_S):
-    """One torchrun of `world` ranks on the card, in a session of its
-    own (killed whole past `timeout`); returns (exit code, output)."""
-    import signal
+def tp_start(world, argv):
+    """Start one torchrun of `world` ranks on the card, in a session of
+    its own, its output into an anonymous file; returns (process,
+    file)."""
     import subprocess
+    import tempfile
 
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            "--nproc-per-node", str(world), *argv]
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
                OMP_NUM_THREADS="1")
-    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, text=True,
-                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                            start_new_session=True)
+    out = tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, text=True, stdout=out,
+                            stderr=subprocess.STDOUT, start_new_session=True)
+    return proc, out
+
+
+def tp_collect(what, started, timeout=TP_TIMEOUT_S, phase="phase 19"):
+    """Wait for a `tp_start` launch (killed whole past `timeout`);
+    returns (exit code, output)."""
+    import signal
+    import subprocess
+
+    proc, f = started
     try:
-        out, _ = proc.communicate(timeout=timeout)
+        proc.wait(timeout=timeout)
     except subprocess.TimeoutExpired:
         os.killpg(proc.pid, signal.SIGKILL)
-        out, _ = proc.communicate()
-        log(out[-4000:])
+        proc.wait()
+        f.seek(0)
+        log(f.read()[-4000:])
         check(False, f"{what}: no end in {timeout}s")
+    f.seek(0)
+    out = f.read()
+    f.close()
     if proc.returncode != 0:
         log(out[-6000:])
     for ln in out.splitlines():
-        if ln.startswith(("[serve] rank", "[serve] grid", "[group]")):
-            log(f"phase 19: {what}: {ln}")
+        if ln.startswith(("[serve] rank", "[serve] grid", "[group]",
+                          "[train] rank", "[train] grid")):
+            log(f"{phase}: {what}: {ln}")
     return proc.returncode, out
+
+
+def tp_launch(what, world, argv, timeout=TP_TIMEOUT_S, phase="phase 19"):
+    """One torchrun of `world` ranks on the card (`tp_start`, then
+    `tp_collect`); returns (exit code, output)."""
+    return tp_collect(what, tp_start(world, argv), timeout, phase)
 
 
 def tp_whole_run(card) -> list:
@@ -4314,6 +4373,275 @@ def tp_phase(card) -> dict:
     return launches
 
 
+# ------------------------------------------------------------ phase 20 --
+# Sharded training through `repro_torch.launch.train --model-axis M`:
+# torchrun launches of ranks sharing the card (gloo; NCCL refuses two
+# ranks on one device), random weights from seed 0, bf16, remat, the
+# batch of phase 18 (4 x 1,024).  Each rank runs `TP_TRAIN_RUNS[launch]`
+# through `launch.train.main`'s body in the launch's group
+# (`tp_train_child`), each step recorded by `TrainSteps`.
+#  * launch A, 2 ranks at model 2: qwen3-1.7b whole, 3 steps at lr
+#    TRAIN_LR; then whisper-base whole, 2 steps checkpointed, and step 3
+#    resumed from that checkpoint at model 2, while the checkpoint's
+#    copy resumes on one device (`--model-axis 1`, in this process);
+#  * launch B, 4 ranks at data 2 x model 2 (ZeRO-3 over data, expert
+#    parallelism, the MoE keep decision over the whole batch):
+#    granite-moe-1b-a400m whole, 2 steps (under gloo each step moves
+#    every parameter's data-axis gather twice, forward and remat, and its
+#    gradient once, through the host); it runs at the same time as
+#    launch A (~35 + ~25 GiB of the card), which keeps the script under
+#    its time limit: the ranks' step times are then each other's
+#    contention, collectives and not scaling in any case;
+#  * with 4 or more cards, one NCCL launch with a card per rank:
+#    jamba-v0.1-52b cut to 8 layers (one superblock) at model 4, 53 GB
+#    of fp32 masters, gradients and AdamW moments a card, and
+#    qwen2-vl-72b cut to 4 layers at data 2 x model 2, 24 GB a card;
+#    neither fits one card.
+# The first step of qwen3-1.7b and of granite-moe must lie within
+# TRAIN_LOSS_ATOL / TRAIN_GNORM_ATOL of phase 18's one-device first step
+# on the same weights and batch (the sharded step sums each row-parallel
+# product's partials in fp32 over gloo and rounds once, where one device
+# rounds the whole product: the same bf16 noise phase 18's limits are
+# ten times), and whisper-base's one-device step 3 within the same
+# limits of launch A's; K4 launches 0 in every step of every rank
+# (training attention is plain).
+TP_TRAIN_ARGV = ["--batch", "4", "--seq", "1024", "--log-every", "1"]
+# extra `launch.train` flags of every phase 20 run, passed to the ranks
+# too (a CPU rehearsal: ["--smoke", "--seq", "32"])
+TP_TRAIN_CHILD_ARGV: list = []
+TP_TRAIN_RUNS = {
+    "A": [("qwen3-1.7b", ["--arch", "qwen3-1.7b", "--steps", "3", "--lr",
+                          TRAIN_LR, "--model-axis", "2"]),
+          ("whisper-base to step 2", ["--arch", "whisper-base", "--steps",
+                                      "2", "--model-axis", "2",
+                                      "--ckpt-every", "2"]),
+          ("whisper-base step 3", ["--arch", "whisper-base", "--steps", "3",
+                                   "--model-axis", "2"])],
+    "B": [("granite-moe-1b-a400m", ["--arch", "granite-moe-1b-a400m",
+                                    "--steps", "2", "--model-axis", "2"])],
+    "4 cards": [("jamba-v0.1-52b, 8 layers", [
+                    "--arch", "jamba-v0.1-52b", "--layers", "8", "--steps",
+                    "2", "--model-axis", "4"]),
+                ("qwen2-vl-72b, 4 layers", [
+                    "--arch", "qwen2-vl-72b", "--layers", "4", "--steps", "2",
+                    "--model-axis", "2"])],
+}
+TP_TRAIN_WORLD = {"A": 2, "B": 4, "4 cards": 4}
+TP_TRAIN_TIMEOUT_S = 300
+
+
+def tp_train_child(argv) -> int:
+    """A rank of a phase 20 launch (`chip_smoke.py --tp-train-child
+    --launch L --out F --ckpt D`, under torchrun): every run of
+    `TP_TRAIN_RUNS[L]` through `launch.train.main`'s body in the
+    launch's group, each step recorded (`TrainSteps`); the whisper-base
+    runs checkpoint into D/tp, which rank 0 copies to D/one after step
+    2; each rank writes its records to F.rank<r>.json."""
+    import argparse
+    import gc
+    import shutil
+
+    import torch
+
+    from repro_torch.launch import mesh, train
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--launch", required=True)
+    ap.add_argument("--out", required=True)
+    ap.add_argument("--ckpt", required=True)
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--seq", default="")
+    args = ap.parse_args(argv)
+    import torch._dynamo  # noqa: F401  (before the group: launch.train's note)
+
+    group, device = mesh.shared_group(args.device)
+    rank = group.rank()
+    cuda = device.type == "cuda"
+    records = []
+    for name, run in TP_TRAIN_RUNS[args.launch]:
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        argv = (run + TP_TRAIN_ARGV + ["--device", args.device]
+                + (["--smoke"] if args.smoke else [])
+                + (["--seq", args.seq] if args.seq else [])
+                + (["--ckpt-dir", os.path.join(args.ckpt, "tp")]
+                   if name.startswith("whisper") else []))
+        t0 = time.perf_counter()
+        with TrainSteps() as rec:
+            rc = train.main.__wrapped__(argv)
+        wall = time.perf_counter() - t0
+        if name == "whisper-base to step 2" and rank == 0:
+            shutil.copytree(os.path.join(args.ckpt, "tp"),
+                            os.path.join(args.ckpt, "one"))
+        records.append({
+            "name": name, "rc": rc, "wall_s": wall,
+            "peak_gib": (torch.cuda.max_memory_allocated() / 2**30
+                         if cuda else 0.0),
+            "steps": rec.steps})
+        rec.last = None
+        del rec
+    with open(f"{args.out}.rank{rank}.json", "w") as f:
+        json.dump(records, f)
+    del group
+    mesh.close_group()
+    return 0
+
+
+def tp_train_start(launch, ckpt_dir):
+    """Start one phase 20 launch (`tp_start`); returns what
+    `tp_train_collect` reads."""
+    base = os.path.join(ckpt_dir, f"run-{launch.replace(' ', '-')}")
+    started = tp_start(TP_TRAIN_WORLD[launch], [
+        os.path.abspath(__file__), "--tp-train-child", "--launch", launch,
+        "--out", base, "--ckpt", ckpt_dir, "--device", DEVICE,
+        *TP_TRAIN_CHILD_ARGV])
+    return launch, base, started, time.perf_counter()
+
+
+def tp_train_collect(card, begun) -> list:
+    """Wait for a `tp_train_start` launch; returns each rank's records
+    (rank order), after checking that every run exited 0 with finite
+    metrics, the same on every rank, and no K4 launch in any step;
+    prints each run's steps, per rank its seconds a step (median after
+    the first), peak memory and a step's collectives by kind and
+    bytes."""
+    import statistics
+
+    launch, base, started, t0 = begun
+    world = TP_TRAIN_WORLD[launch]
+    rc, out = tp_collect(f"launch {launch}, {world} ranks", started,
+                         timeout=TP_TRAIN_TIMEOUT_S, phase="phase 20")
+    wall = time.perf_counter() - t0
+    check(rc == 0, f"phase 20: launch {launch}: torchrun exited {rc}")
+    backend = "nccl" if launch == "4 cards" else "gloo"
+    check(f"[group] world={world} backend={backend}" in out,
+          f"phase 20: launch {launch} is not on {backend}")
+    ranks = []
+    for r in range(world):
+        with open(f"{base}.rank{r}.json") as f:
+            ranks.append(json.load(f))
+    for i, (name, _) in enumerate(TP_TRAIN_RUNS[launch]):
+        recs = [rk[i] for rk in ranks]
+        for r, rec in enumerate(recs):
+            check(rec["rc"] == 0, f"phase 20: {name} rank {r} exited "
+                  f"{rec['rc']}")
+            for j, st in enumerate(rec["steps"]):
+                check(all(map(math.isfinite, (st["loss"], st["grad_norm"]))),
+                      f"phase 20: {name} rank {r} step {j + 1} not finite")
+                check(st["launches"]["flash"] == 0,
+                      f"phase 20: {name} rank {r} step {j + 1} launched K4 "
+                      f"{st['launches']['flash']} times")
+                check((st["loss"], st["grad_norm"]) ==
+                      (recs[0]["steps"][j]["loss"],
+                       recs[0]["steps"][j]["grad_norm"]),
+                      f"phase 20: {name}: the ranks' step {j + 1} metrics "
+                      f"differ")
+        steps = recs[0]["steps"]
+        per_rank = "; ".join(
+            f"rank {r} {statistics.median(x['s'] for x in rec['steps'][1:] or rec['steps']):.3f} s/step, "
+            f"peak {rec['peak_gib']:.2f} GiB, collectives a step "
+            + ", ".join(f"{k} {n} ({b / 2**20:.0f} MiB)"
+                        for k, (n, b) in rec["steps"][-1]["collectives"]
+                        .items())
+            for r, rec in enumerate(recs))
+        log(f"phase 20: launch {launch}: {name}: losses "
+            f"{[round(x['loss'], 5) for x in steps]}, grad norms "
+            f"{[round(x['grad_norm'], 4) for x in steps]}, step s "
+            f"{[round(x['s'], 3) for x in steps]}; {per_rank}; K4 launches "
+            f"0 in every step of every rank; run wall "
+            f"{recs[0]['wall_s']:.1f} s on {card}")
+    log(f"phase 20: launch {launch} ({world} ranks) in {wall:.1f}s")
+    return ranks
+
+
+def tp_train_first_step(name, rec, arch) -> None:
+    """A launch's first step against phase 18's one-device first step of
+    `arch` on the same weights and batch."""
+    loss, gnorm = rec["steps"][0]["loss"], rec["steps"][0]["grad_norm"]
+    want = RESULTS.get(f"first step {arch}")
+    check(want is not None, f"phase 20: no phase 18 first step of {arch}")
+    dl, dg = abs(loss - want[0]), abs(gnorm - want[1])
+    log(f"phase 20: {name}: first step loss {loss:.5f} gnorm {gnorm:.5f}, "
+        f"one device (phase 18) {want[0]:.5f} / {want[1]:.5f}: apart "
+        f"{dl:.5f} / {dg:.5f} (limits {TRAIN_LOSS_ATOL} / "
+        f"{TRAIN_GNORM_ATOL})")
+    check(dl <= TRAIN_LOSS_ATOL and dg <= TRAIN_GNORM_ATOL,
+          f"phase 20: {name}: first step {loss} / {gnorm} vs one device "
+          f"{want}")
+
+
+def tp_train_phase(card) -> dict:
+    """Phase 20: sharded training (see `TP_TRAIN_RUNS`).  Returns K4's
+    launches per rank per step by run (all 0)."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.launch import train
+
+    t_phase = time.perf_counter()
+    gc.collect()                  # the earlier phases' weights: the
+    torch.cuda.empty_cache()      # ranks need the card's memory
+    ckpt_dir = tempfile.mkdtemp(prefix="tp-train-",
+                                dir=os.path.join(ROOT, "build"))
+    launches = {}
+    try:
+        # launches A and B run at once (35 + 25 GiB of the card's 80)
+        begun_b = tp_train_start("B", ckpt_dir)
+        a = tp_train_collect(card, tp_train_start("A", ckpt_dir))
+        tp_train_first_step("launch A qwen3-1.7b at model 2", a[0][0],
+                            "qwen3-1.7b")
+        # whisper-base's step 3 on one device from launch A's step-2
+        # checkpoint, against launch A's own resumed step 3
+        argv = (["--arch", "whisper-base", "--steps", "3", "--device",
+                 DEVICE, "--ckpt-dir", os.path.join(ckpt_dir, "one")]
+                + TP_TRAIN_ARGV + TP_TRAIN_CHILD_ARGV)
+        with TrainSteps() as rec, contextlib.redirect_stdout(None):
+            rc = train.main(argv)
+        check(rc == 0 and len(rec.steps) == 1,
+              f"phase 20: one-device resume exited {rc} after "
+              f"{len(rec.steps)} step(s), want 1")
+        one, tp3 = rec.steps[0], a[0][2]["steps"][0]
+        dl, dg = (abs(one["loss"] - tp3["loss"]),
+                  abs(one["grad_norm"] - tp3["grad_norm"]))
+        log(f"phase 20: whisper-base step 3 resumed from the model-2 "
+            f"checkpoint of step 2: one device loss {one['loss']:.5f} gnorm "
+            f"{one['grad_norm']:.5f}, model 2 {tp3['loss']:.5f} / "
+            f"{tp3['grad_norm']:.5f}: apart {dl:.5f} / {dg:.5f} (limits "
+            f"{TRAIN_LOSS_ATOL} / {TRAIN_GNORM_ATOL}) on {card}")
+        check(dl <= TRAIN_LOSS_ATOL and dg <= TRAIN_GNORM_ATOL,
+              f"phase 20: whisper-base elastic resume {one} vs {tp3}")
+        check(one["launches"]["flash"] == 0, "phase 20: the one-device "
+              "resume launched K4")
+        rec.last = None
+        del rec
+        gc.collect()
+        torch.cuda.empty_cache()
+        b = tp_train_collect(card, begun_b)
+        tp_train_first_step("launch B granite-moe-1b-a400m at data 2 x "
+                            "model 2", b[0][0], "granite-moe-1b-a400m")
+        runs = {"A": a, "B": b}
+        if torch.cuda.device_count() >= 4:
+            runs["4 cards"] = tp_train_collect(
+                card, tp_train_start("4 cards", ckpt_dir))
+        else:
+            log(f"phase 20: jamba-v0.1-52b (8 layers, model 4) and "
+                f"qwen2-vl-72b (4 layers, data 2 x model 2) on 4 cards "
+                f"skipped: {torch.cuda.device_count()} card(s) visible")
+        for launch, ranks in runs.items():
+            for i, (name, _) in enumerate(TP_TRAIN_RUNS[launch]):
+                launches[name] = [[st["launches"]["flash"]
+                                   for st in rk[i]["steps"]] for rk in ranks]
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    log(f"phase 20: sharded training in {time.perf_counter() - t_phase:.1f}s")
+    return launches
+
 # ------------------------------------------------------------- phase 1 --
 def ptxas_summary(log_text: str) -> list:
     """(kernel, registers, spill store bytes, spill load bytes) for each
@@ -4428,6 +4756,10 @@ def main() -> int:
     for k in kernels:
         if k["name"] == "flash_attention":
             k["tp_launches"] = tp
+    tp_train = tp_train_phase(card)
+    for k in kernels:
+        if k["name"] == "flash_attention":
+            k["tp_train_launches"] = tp_train
     log(f"done in {time.perf_counter() - t_all:.1f}s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -4440,4 +4772,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--tp-child"]:
         sys.exit(tp_child(sys.argv[2:]))
+    if sys.argv[1:2] == ["--tp-train-child"]:
+        sys.exit(tp_train_child(sys.argv[2:]))
     sys.exit(main())

@@ -14,7 +14,7 @@ import torch
 
 from .core.plan import MatchingPlan, plan_from_dict
 from .graph.csr import GraphCSR
-from .parallel.sharding import leaves, map_leaves, partition
+from .parallel.sharding import in_order_of, leaves, map_leaves, partition
 
 
 def graph_from_arrays(indptr, indices, degrees, labels=None, *,
@@ -98,36 +98,66 @@ def opt_state_from_reference(state: dict, *, device="cpu") -> dict:
                                  dtype=torch.int32, device=device)}
 
 
-def shard_params(tree: dict, cfg, grid, *, model_rank: int | None = None):
+def shard_params(tree: dict, cfg, grid, *, model_rank: int | None = None,
+                 data_rank: int | None = None, zero: bool = False):
     """A rank's shard of a whole LM param tree (`models/transformer.py`
     layout; fp32 masters or cast for serving): each leaf that
     `parallel.sharding.partition` splits over the model axis keeps the
     indices of model rank `model_rank` (default: `grid`'s own), the
-    others are kept whole.  Works on the parts `transformer.init` draws
-    one at a time too ({"embed": ...}, {"layers": [...]})."""
-    r = grid.model_rank if model_rank is None else model_rank
+    others are kept whole.  With `zero` (training), each leaf then
+    keeps the block of data rank `data_rank` (default: `grid`'s own)
+    along the dim `sharding.data_partition` names: the rank's
+    `sharding.Piece`.  Works on the parts `transformer.init` draws one
+    at a time too ({"embed": ...}, {"layers": [...]}), and on the AdamW
+    moments, which mirror the params."""
+    from .parallel.sharding import train_piece
+
+    g = _at(grid, model_rank, data_rank)
 
     def one(path, leaf):
-        cut = partition(path, tuple(leaf.shape), cfg, grid)
+        if zero:
+            return train_piece(path, tuple(leaf.shape), cfg, g).cut(
+                leaf, g).contiguous()
+        cut = partition(path, tuple(leaf.shape), cfg, g)
         if cut is None:
             return leaf
         dim, idx = cut
-        return leaf.index_select(dim, idx(r).to(leaf.device))
+        return leaf.index_select(dim, idx(g.model_rank).to(leaf.device))
 
     return map_leaves(one, tree)
 
 
-def gather_params(shards: list, cfg, grid) -> dict:
-    """The whole tree from every model rank's shard (`shards[r]` is
-    model rank r's): the inverse of `shard_params`."""
-    from .models.transformer import init
+def _at(grid, model_rank, data_rank):
+    """`grid` seen from the rank at (data_rank, model_rank) (None: the
+    grid's own)."""
+    from dataclasses import replace
 
-    flat = [[leaf for _, leaf in leaves(s)] for s in shards]
+    m = grid.model_rank if model_rank is None else model_rank
+    d = grid.data_rank if data_rank is None else data_rank
+    return replace(grid, rank=d * grid.model + m)
+
+
+def gather_params(shards: list, cfg, grid, *, zero: bool = False) -> dict:
+    """The whole tree from every rank's shard: the inverse of
+    `shard_params`.  `shards[r]` is model rank r's, or with `zero` the
+    shard of rank r = data rank · model + model rank (every rank of
+    the grid)."""
+    from .models.transformer import init
+    from .parallel.sharding import train_piece
+
+    like = init(cfg, device="meta")
+    flat = [[leaf for _, leaf in leaves(in_order_of(like, s))]
+            for s in shards]
     at = iter(range(len(flat[0])))
 
     def one(path, whole):
         i = next(at)
         parts = [f[i] for f in flat]
+        if zero:
+            pieces = [train_piece(path, tuple(whole.shape), cfg,
+                                  _at(grid, r % grid.model, r // grid.model))
+                      for r in range(len(parts))]
+            return _assemble(whole, parts, pieces, grid)
         cut = partition(path, tuple(whole.shape), cfg, grid)
         if cut is None:
             return parts[0]
@@ -137,4 +167,25 @@ def gather_params(shards: list, cfg, grid) -> dict:
             out.index_copy_(dim, idx(r).to(part.device), part)
         return out
 
-    return map_leaves(one, init(cfg, device="meta"))
+    return map_leaves(one, like)
+
+
+def _assemble(whole, parts, pieces, grid):
+    """The whole leaf from every rank's block (`parts[r]`, laid out by
+    `pieces[r]`), written rank after rank through its model part."""
+    out = parts[0].new_zeros(whole.shape)
+    for r, (part, piece) in enumerate(zip(parts, pieces)):
+        g = _at(grid, r % grid.model, r // grid.model)
+        mine, model_part = None, out
+        if piece.model is not None:
+            dim, idx = piece.model
+            mine = idx(g.model_rank).to(out.device)
+            model_part = out.index_select(dim, mine)
+        target = model_part
+        if piece.data is not None:
+            n = part.shape[piece.data]
+            target = model_part.narrow(piece.data, g.data_rank * n, n)
+        target.copy_(part)
+        if mine is not None:
+            out.index_copy_(dim, mine, model_part)
+    return out

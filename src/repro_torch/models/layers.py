@@ -15,16 +15,20 @@ Self- and cross-attention in prefill go through kernel K4
 the reference.  The projections, the MLP and the lm_head are
 `torch.matmul`, as the reference leaves them to XLA.
 
-Under a serving step's grid (`parallel.tp`) a layer's weights may hold
-only this rank's part (`parallel.sharding.partition`): wq / wk / wv
-their heads' columns (column-parallel), wo and the MLP's down
-projection their rows (row-parallel, followed by an all_reduce over
-the model axis).  The head counts come from the weights' shapes, so
-the one-device path is the same code with every part whole.  Where the
-KV heads do not divide the model axis, wk / wv stay whole and a rank
-picks the KV heads its query heads read (`_local_kv`).  Decode
-attention over a cache split along the sequence is flash-decoding
-(`_attention_decode_seq`).
+Under a serving or training step's grid (`parallel.tp`) a layer's
+weights may hold only this rank's part (`parallel.sharding.partition`):
+wq / wk / wv their heads' columns and the MLP's gate / up their
+columns (column-parallel, their input copied into the model axis:
+`tp.copy_in`, whose backward sums the input's gradient over it), wo and
+the MLP's down projection their rows (row-parallel, followed by an
+all_reduce over the model axis).  The head counts come from the
+weights' shapes, so the one-device path is the same code with every
+part whole.  Where the KV heads do not divide the model axis, wk / wv
+stay whole and a rank picks the KV heads its query heads read
+(`_local_kv`); each rank's gradient of them, and of the q / k norms
+every head shares, is then partial and summed over the model axis.
+Decode attention over a cache split along the sequence is
+flash-decoding (`_attention_decode_seq`).
 """
 from __future__ import annotations
 
@@ -150,6 +154,8 @@ def swiglu_mlp(p: Params, x: torch.Tensor, dtype, d_ff: int = 0
                ) -> torch.Tensor:
     """SwiGLU; with `d_ff`, gate / up may hold their columns of it and
     down its rows (then summed over the model axis)."""
+    if d_ff and p["gate"]["w"].shape[1] < d_ff:
+        x = tp.copy_in(x)
     g = dense(p["gate"], x, dtype)
     u = dense(p["up"], x, dtype)
     return dense_rows(p["down"], F.silu(g) * u, dtype, d_ff)
@@ -179,15 +185,40 @@ def _heads(p, hd) -> tuple[int, int]:
     return p["wq"]["w"].shape[1] // hd, p["wk"]["w"].shape[1] // hd
 
 
+def _split(p, cfg) -> bool:
+    """Whether this rank's attention weights hold some of the heads."""
+    return _heads(p, cfg.head_dim)[0] < cfg.n_heads
+
+
+def _kv_weights(p, cfg):
+    """(wk, wv) as this rank's products read them: where its query heads
+    are split and wk / wv are whole, every model rank reads them only
+    for the KV heads its query heads use (`_local_kv`), so their
+    gradient is summed over the model axis."""
+    if _split(p, cfg) and _heads(p, cfg.head_dim)[1] == cfg.n_kv_heads:
+        return ({"w": tp.copy_in(p["wk"]["w"])},
+                {"w": tp.copy_in(p["wv"]["w"])})
+    return p["wk"], p["wv"]
+
+
 def _qkv(p, x, cfg, dtype, positions=None, positions3=None):
     hd = cfg.head_dim
     H, K = _heads(p, hd)
+    split = _split(p, cfg)
+    if split:
+        x = tp.copy_in(x)
+    wk, wv = _kv_weights(p, cfg)
     q = _split_heads(dense(p["wq"], x, dtype), H, hd)
-    k = _split_heads(dense(p["wk"], x, dtype), K, hd)
-    v = _split_heads(dense(p["wv"], x, dtype), K, hd)
+    k = _split_heads(dense(wk, x, dtype), K, hd)
+    v = _split_heads(dense(wv, x, dtype), K, hd)
     if cfg.qk_norm:
-        q = head_rms_norm(q, p["q_norm"], cfg.norm_eps)
-        k = head_rms_norm(k, p["k_norm"], cfg.norm_eps)
+        # one scale for every head: each rank's heads give part of its
+        # gradient
+        qn, kn = p["q_norm"], p["k_norm"]
+        if split:
+            qn, kn = tp.copy_in(qn), tp.copy_in(kn)
+        q = head_rms_norm(q, qn, cfg.norm_eps)
+        k = head_rms_norm(k, kn, cfg.norm_eps)
     if cfg.mrope and positions3 is not None:
         q = apply_mrope(q, positions3, cfg.rope_theta, _mrope_sections(hd))
         k = apply_mrope(k, positions3, cfg.rope_theta, _mrope_sections(hd))
@@ -289,6 +320,8 @@ def cross_attention(p: Params, x, enc_kv, cfg, dtype, *, q_chunk: int = 0,
     (`enc_kv`).  Bidirectional, no RoPE; K4 under the same rule as
     self-attention (Sq == Sk, a multiple of 512)."""
     hd = cfg.head_dim
+    if _split(p, cfg):
+        x = tp.copy_in(x)
     q = _split_heads(dense(p["wq"], x, dtype), _heads(p, hd)[0], hd)
     k, v = _local_kv(q, *enc_kv, cfg)
     out = sdpa_any(q, k, v, causal=False, q_chunk=q_chunk, flash=flash)
@@ -300,8 +333,11 @@ def enc_kv(p: Params, enc_out, cfg, dtype):
     (this rank's KV heads)."""
     hd = cfg.head_dim
     K = _heads(p, hd)[1]
-    k = _split_heads(dense(p["wk"], enc_out, dtype), K, hd)
-    v = _split_heads(dense(p["wv"], enc_out, dtype), K, hd)
+    if _split(p, cfg):
+        enc_out = tp.copy_in(enc_out)
+    wk, wv = _kv_weights(p, cfg)
+    k = _split_heads(dense(wk, enc_out, dtype), K, hd)
+    v = _split_heads(dense(wv, enc_out, dtype), K, hd)
     return k, v
 
 

@@ -14,7 +14,12 @@ Under a grid a rank may hold its heads' part of a block
 (`parallel.sharding.partition`: z, x, dt, A_log, D, dt_bias, the norm
 scale and x's conv channels by heads, the B/C group whole): the widths
 come from the weights, the gated norm's mean over d_inner sums over
-the model axis and out_proj is row-parallel.
+the model axis and out_proj is row-parallel.  In training the block's
+input is copied into the model axis (in_proj is column-parallel), the
+gated norm's sum of squares passes its gradient back summed over the
+model axis (each rank's channels read it), and the B/C columns of
+in_proj and the conv, which every rank holds but reads only for its
+heads, have their gradient summed over the model axis.
 """
 from __future__ import annotations
 
@@ -84,7 +89,8 @@ def _gated_norm(y, z, scale, eps, d_inner):
     where y holds this rank's channels of it)."""
     y32 = y.float() * F.silu(z.float())
     if y.shape[-1] < d_inner:
-        var = tp.all_reduce(y32.square().sum(dim=-1, keepdim=True)) / d_inner
+        var = tp.all_reduce(y32.square().sum(dim=-1, keepdim=True),
+                            summed=True) / d_inner
     else:
         var = y32.square().mean(dim=-1, keepdim=True)
     return (y32 * torch.rsqrt(var + eps) * scale).to(y.dtype)
@@ -100,9 +106,15 @@ def mamba_block(p: Params, x, cfg, dtype, *, initial_state=None):
     Q = min(cfg.ssm_chunk, S)
     if S % Q:
         raise ValueError(f"sequence {S} is not a multiple of the chunk {Q}")
-    z, xBC, dt = _split_proj(di, ds, dense(p["in_proj"], x, dtype))
+    w_in, conv_w, conv_b = p["in_proj"]["w"], p["conv_w"], p["conv_b"]
+    if di < cfg.d_inner:
+        x = tp.copy_in(x)
+        w_in = tp.copy_in(w_in, (1, 2 * di, 2 * di + 2 * ds))
+        conv_w = tp.copy_in(conv_w, (1, di, di + 2 * ds))
+        conv_b = tp.copy_in(conv_b, (0, di, di + 2 * ds))
+    z, xBC, dt = _split_proj(di, ds, dense({"w": w_in}, x, dtype))
     xBC, conv_state = _causal_conv(
-        xBC, p["conv_w"], p["conv_b"],
+        xBC, conv_w, conv_b,
         state=None if initial_state is None else initial_state["conv"])
     xs = xBC[..., :di].reshape(B, S, nh, hd)
     Bm = xBC[..., di:di + ds].float()                 # [B, S, ds] (1 group)

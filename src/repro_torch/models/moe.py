@@ -22,7 +22,11 @@ scatter-add visits them — so two prefills on one card are bit-equal.
 Expert parallelism: under a grid a rank may hold E/M of the experts
 (`parallel.sharding.partition`); the router stays whole, in fp32.
 Each rank adds its experts' share of every token's output, and the
-shares are summed over the model axis.  The capacity C and the drops
+shares are summed over the model axis.  In training the experts' input
+and the routing weights are copied into the model axis (`tp.copy_in`):
+each rank's experts reach only their share of the output, so the
+gradients that reach the input and the router through them are
+partial and summed over the model axis.  The capacity C and the drops
 stay those of the whole batch, as the reference's (GSPMD sees global
 shapes): where the batch is split over the data axis, every rank
 gathers the routing (N·k expert ids) over it and takes the same keep
@@ -159,6 +163,8 @@ def moe_sorted(p: Params, x: torch.Tensor, cfg, dtype):
     whole = tp.gather_batch(idx)
     C = capacity(whole.shape[0], cfg)
     lo, El = _local_experts(p, cfg)
+    if El < cfg.n_experts:
+        xf, w = tp.copy_in(xf), tp.copy_in(w)
     flat = idx.reshape(-1)
     mine = _keep(idx, whole, cfg) & (flat >= lo) & (flat < lo + El)
     # pairs on another rank's experts, or dropped, sort past the

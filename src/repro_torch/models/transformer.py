@@ -36,15 +36,23 @@ each decoder layer is recomputed in the backward pass
 (`torch.utils.checkpoint`), where the reference rematerializes each
 scanned superblock: the math is the same.
 
-Tensor parallelism (serving, under `parallel.tp`): a rank's tree holds
-its part of each leaf (`convert.shard_params`, or `init(...,
-shard=)`).  The embedding is vocabulary-parallel where the vocabulary
-divides the model axis (a rank looks up its rows, zeros elsewhere,
-summed over the model axis), the logits are gathered along the
-vocabulary so every rank takes the same argmax, and the layers split
-as `layers`, `moe` and `mamba2` say.  A leaf a rule leaves whole
+Tensor parallelism (serving and training, under `parallel.tp`): a
+rank's tree holds its part of each leaf (`convert.shard_params`, or
+`init(..., shard=)`).  The embedding is vocabulary-parallel where the
+vocabulary divides the model axis (a rank looks up its rows, zeros
+elsewhere, summed over the model axis), serving gathers the logits
+along the vocabulary so every rank takes the same argmax, training
+takes the loss vocabulary-parallel (`_xent`), and the layers split as
+`layers`, `moe` and `mamba2` say.  A leaf a rule leaves whole
 (granite-moe's vocabulary of 49,155) is replicated.  `init_cache(...,
 grid=)` sizes one rank's cache.
+
+ZeRO-3 (training under a grid with a data axis, `tp.Ctx.zero`): a
+rank holds a data-axis block of most leaves, and each layer gathers
+its leaves over the data axis where it runs (`tp.gathered`), inside
+the rematerialized layer, so the backward pass gathers them again and
+the whole layer lives only while it is used; the embedding and the
+output projection are gathered where they are read.
 """
 from __future__ import annotations
 
@@ -218,10 +226,16 @@ def _embed_in(cfg, params, batch, dtype):
     return x, positions, batch.get("positions3")
 
 
+def _top(params, name):
+    """params[name] (embed, lm_head), gathered over the data axis under
+    ZeRO-3."""
+    return tp.gathered(params[name], tp.zero_of(name))
+
+
 def _lookup(cfg, params, tokens, dtype):
     """Token embeddings; vocabulary-parallel where this rank holds only
     its block of the rows."""
-    w = cast(params["embed"]["w"], dtype)
+    w = cast(_top(params, "embed")["w"], dtype)
     V = w.shape[0]
     if V == cfg.vocab:
         return w[tokens]
@@ -236,7 +250,8 @@ def _encoder(cfg, params, enc_embeds, dtype, q_chunk=0, flash=False):
     S, d = enc_embeds.shape[1:]
     x = (enc_embeds.to(dtype)
          + L.sinusoidal_positions(S, d, enc_embeds.device).to(dtype))
-    for lp in params["encoder"]:
+    for i, lp in enumerate(params["encoder"]):
+        lp = tp.gathered(lp, tp.zero_of("encoder", i))
         a = rms_norm(lp["norm1"], x, cfg.norm_eps)
         x = x + L.attention(lp["attn"], a, cfg, dtype, causal=False,
                             q_chunk=q_chunk, flash=flash)
@@ -265,9 +280,12 @@ def _maybe_remat(remat: bool, fn, *args):
     return fn(*args)
 
 
-def _decdec_layer(cfg, lp, cp, x, enc_out, dtype, positions, q_chunk, flash):
+def _decdec_layer(cfg, lp, cp, x, enc_out, dtype, positions, q_chunk, flash,
+                  zero=(None, None)):
     """One enc-dec decoder layer: causal self-attention, cross-attention
-    over the encoder output, MLP.  Returns (x, its cross K/V)."""
+    over the encoder output, MLP (`zero`: the ZeRO-3 dims of its self
+    and cross parts).  Returns (x, its cross K/V)."""
+    lp, cp = tp.gathered(lp, zero[0]), tp.gathered(cp, zero[1])
     a = rms_norm(lp["norm1"], x, cfg.norm_eps)
     x = x + L.attention(lp["attn"], a, cfg, dtype, causal=True,
                         positions=positions, q_chunk=q_chunk, flash=flash)
@@ -282,17 +300,21 @@ def _decdec_backbone(cfg, params, x, enc_out, dtype, positions, q_chunk=0,
                      flash=False, remat=False):
     """Enc-dec decoder stack.  Returns (x, per-layer cross K/V)."""
     kvs = []
-    for lp, cp in zip(params["layers"], params["cross"]):
+    for i, (lp, cp) in enumerate(zip(params["layers"], params["cross"])):
+        zero = (tp.zero_of("layers", i), tp.zero_of("cross", i))
         x, kv = _maybe_remat(remat, _decdec_layer, cfg, lp, cp, x, enc_out,
-                             dtype, positions, q_chunk, flash)
+                             dtype, positions, q_chunk, flash, zero)
         kvs.append({"k": kv[0], "v": kv[1]})
     return x, kvs
 
 
-def _layer(cfg, kinds, lp, x, dtype, positions, positions3, q_chunk, flash):
+def _layer(cfg, kinds, lp, x, dtype, positions, positions3, q_chunk, flash,
+           zero=None):
     """One decoder layer of every family but encdec: the mixer (causal
-    attention or Mamba) and the MLP, each on the residual stream.
-    Returns (x, the layer's cache entry: its K/V or its Mamba state)."""
+    attention or Mamba) and the MLP, each on the residual stream
+    (`zero`: its ZeRO-3 dims).  Returns (x, the layer's cache entry:
+    its K/V or its Mamba state)."""
+    lp = tp.gathered(lp, zero)
     mix, mlp = kinds
     a = rms_norm(lp["norm1"], x, cfg.norm_eps)
     if mix == "attn":
@@ -311,21 +333,26 @@ def _backbone(cfg, params, x, dtype, positions, positions3, q_chunk=0,
     """The decoder stack of every family but encdec.  Returns (x, per-layer
     cache entries)."""
     caches = []
-    for kinds, lp in zip(_kinds(cfg), params["layers"]):
+    for i, (kinds, lp) in enumerate(zip(_kinds(cfg), params["layers"])):
         x, entry = _maybe_remat(remat, _layer, cfg, kinds, lp, x, dtype,
-                                positions, positions3, q_chunk, flash)
+                                positions, positions3, q_chunk, flash,
+                                tp.zero_of("layers", i))
         caches.append(entry)
     return x, caches
+
+
+def _out_weight(cfg, params, dtype):
+    """The output projection [d, V] (or this rank's vocabulary block of
+    it): the lm_head, or the tied embedding transposed."""
+    if cfg.tie_embeddings:
+        return cast(_top(params, "embed")["w"], dtype).T
+    return cast(_top(params, "lm_head")["w"], dtype)
 
 
 def _logits(cfg, params, x, dtype):
     """x @ the output projection; where this rank holds a block of the
     vocabulary, every rank's block gathered in order."""
-    if cfg.tie_embeddings:
-        w = cast(params["embed"]["w"], dtype).T
-    else:
-        w = cast(params["lm_head"]["w"], dtype)
-    y = x @ w
+    y = x @ _out_weight(cfg, params, dtype)
     return y if y.shape[-1] == cfg.vocab else tp.all_gather(y, dim=-1)
 
 
@@ -336,17 +363,38 @@ def _xent(cfg, params, x, labels, dtype, loss_chunk: int = 0):
     """Token NLL sum and count of labels ≥ 0 (fp32 log-softmax over the
     vocabulary); over sequence chunks of `loss_chunk` when S is a
     multiple of it above it, as in the reference, so the [B, S, V] fp32
-    logits never exist at once in the forward pass."""
+    logits never exist at once in the forward pass.
+
+    Where this rank holds a vocabulary block of the output projection
+    the loss is taken vocabulary-parallel, the same function without
+    gathering the logits: each row's maximum over the model axis (no
+    gradient: the loss does not depend on it), Σ exp and the label's
+    logit (from the rank that holds it) summed over the model axis
+    (backward: as is, every rank reads the sums)."""
+    w = _out_weight(cfg, params, dtype)
+    parallel = w.shape[-1] < cfg.vocab
+
+    def nll_of(xc, lc):
+        if not parallel:
+            logp = torch.log_softmax((xc @ w).float(), dim=-1)
+            # the reference's take_along_axis wraps a −1 label to the
+            # last class and its mask zeroes it; gather needs an index
+            # in range
+            return -logp.gather(-1, lc.clamp_min(0).long()[..., None])[..., 0]
+        logits = (tp.copy_in(xc) @ w).float()
+        Vl = logits.shape[-1]
+        m = tp.all_max(logits.amax(dim=-1, keepdim=True))
+        local = lc.long() - tp.active().model_rank * Vl
+        hit = (local >= 0) & (local < Vl)
+        picked = logits.gather(-1, local.clamp(0, Vl - 1)[..., None])[..., 0]
+        sums = tp.all_reduce(torch.stack([
+            torch.exp(logits - m).sum(dim=-1),
+            torch.where(hit, picked, torch.zeros_like(picked))]))
+        return torch.log(sums[0]) + m[..., 0] - sums[1]
 
     def piece(xc, lc):
-        logits = _logits(cfg, params, xc, dtype).float()
-        logp = torch.log_softmax(logits, dim=-1)
-        # the reference's take_along_axis wraps a −1 label to the last
-        # class and its mask zeroes it; gather needs an index in range
-        idx = lc.clamp_min(0).long()[..., None]
-        nll = -logp.gather(-1, idx)[..., 0]
         mask = (lc >= 0).float()
-        return (nll * mask).sum(), mask.sum()
+        return (nll_of(xc, lc) * mask).sum(), mask.sum()
 
     S = labels.shape[1]
     if loss_chunk and S % loss_chunk == 0 and S > loss_chunk:
@@ -378,6 +426,9 @@ def loss_fn(cfg, *, remat: bool = False, q_chunk: int = 0,
                           q_chunk=q_chunk, remat=remat)[0]
         x = rms_norm(params["final_norm"], x, cfg.norm_eps)
         tot, cnt = _xent(cfg, params, x, batch["labels"], dtype, loss_chunk)
+        # a rank of a batch split over the data axis: its share of the
+        # whole batch's mean (the shares sum to it)
+        cnt = tp.data_sum(cnt)
         loss = tot / cnt.clamp_min(1.0)
         return loss, {"loss": loss, "tokens": cnt}
 

@@ -34,9 +34,13 @@ without the list index, and its spec is the reference's without the
 leading stack entries (which the reference pads with None).
 
 What a rank holds in serving (`partition`) follows the specs' "model"
-entries, with these designed differences:
- * the DP entries are not applied: each data group holds a whole
-   model-axis shard (the batch is still split over data);
+entries; in training (`train_piece`) a rank holds the intersection of
+that model-axis part and its block of the DP entry's dim
+(`data_partition`, ZeRO-3 over the data axis), with the moments laid
+out like the params (`opt_state_shardings`).  The designed differences
+from the reference's specs:
+ * in serving the DP entries are not applied: each data group holds a
+   whole model-axis shard (the batch is still split over data);
  * wk / wv stay whole where the KV heads do not divide the model axis
    (granite-34b's one KV head); the reference shards their columns and
    GSPMD regathers them;
@@ -52,8 +56,9 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any
+from typing import Any, Callable
 
+import numpy as np
 import torch
 
 MP = "model"
@@ -201,6 +206,18 @@ def map_leaves(fn, tree, path=()):
     if isinstance(tree, list):
         return [map_leaves(fn, v, path) for v in tree]
     return fn(path, tree)
+
+
+def in_order_of(like, tree):
+    """`tree` with its dict keys in `like`'s order: a tree carried
+    across from the reference (`convert.lm_params_from_reference`)
+    lists its top-level leaves in another order than `transformer.init`,
+    and code that walks two trees leaf by leaf needs one order."""
+    if isinstance(like, dict):
+        return {k: in_order_of(v, tree[k]) for k, v in like.items()}
+    if isinstance(like, list):
+        return [in_order_of(v, t) for v, t in zip(like, tree)]
+    return tree
 
 
 def param_shardings(params_shape, mesh: Grid, layout: str = "tp2d"):
@@ -403,3 +420,104 @@ def _mamba_partition(name: tuple, shape, cfg, m: int):
     if key in ("norm", "out_proj"):
         return 0, xs
     raise KeyError(f"unknown Mamba leaf {name}")
+
+
+# ====================================================== training (ZeRO-3)
+def data_partition(path: tuple[str, ...], shape: tuple[int, ...],
+                   mesh: Grid, layout: str = "tp2d"):
+    """How a parameter leaf is split over the data axes in training:
+    (dim, blocks), the dim `param_spec` gives the DP axes, cut into as
+    many contiguous blocks as they have ranks (data rank d holds block
+    d); None where the spec gives them no dim (1-D leaves, conv_w, a
+    dim they do not divide, the 'dp_replicated' layout) or they have
+    one rank."""
+    dp = dp_axes(mesh)
+    if dp is None or _size(mesh, dp) == 1:
+        return None
+    spec = param_spec(path, shape, mesh, layout)
+    if dp not in spec:
+        return None
+    return spec.index(dp), _size(mesh, dp)
+
+
+@dataclass(frozen=True)
+class Piece:
+    """What one rank holds of a parameter leaf (and of its gradient and
+    AdamW moments) in training: `model` is `partition`'s (dim, idx) or
+    None (whole over the model axis), `data` the dim of that model part
+    whose `grid.data` contiguous blocks the data ranks hold (None:
+    whole over the data axis), `shared` the (dim, lo, hi) slice of the
+    model part that every model rank holds (a Mamba block's B/C
+    columns) or None."""
+
+    model: tuple[int, Callable] | None
+    data: int | None
+    shared: tuple[int, int, int] | None = None
+
+    def cut(self, whole, grid: Grid):
+        """`grid`'s rank's block of the whole leaf (a tensor, or a numpy
+        array such as a checkpoint's memory-mapped leaf: only the
+        block is read)."""
+        t = whole
+        if self.model is not None:
+            dim, idx = self.model
+            i = idx(grid.model_rank)
+            t = (t.index_select(dim, i.to(t.device))
+                 if isinstance(t, torch.Tensor)
+                 else np.take(t, i.numpy(), axis=dim))
+        if self.data is not None:
+            n = t.shape[self.data] // grid.data
+            at = [slice(None)] * t.ndim
+            at[self.data] = slice(grid.data_rank * n, (grid.data_rank + 1) * n)
+            t = t[tuple(at)]
+        return t
+
+    def counted(self, grid: Grid, block: torch.Tensor) -> torch.Tensor:
+        """Σ x² over the elements of `block` (this rank's) that this rank
+        counts in a global norm: each element of the whole leaf once,
+        by the first of the ranks that hold it (model rank 0 for what
+        every model rank holds, data rank 0 for what every data rank
+        holds)."""
+        zero = block.new_zeros((), dtype=torch.float32)
+        if self.data is None and grid.data_rank != 0:
+            return zero
+        if self.model is None and grid.model_rank != 0:
+            return zero
+        sq = block.float().square()
+        if self.shared is not None and grid.model_rank != 0:
+            dim, lo, hi = self.shared
+            sq.narrow(dim, lo, hi - lo).zero_()
+        return sq.sum()
+
+
+def train_piece(path: tuple[str, ...], shape: tuple[int, ...], cfg,
+                mesh: Grid, layout: str = "tp2d") -> Piece:
+    """A leaf's `Piece` of `mesh`'s ranks in training.  Raises where the
+    heads do not divide the model axis (`partition`)."""
+    model = partition(path, shape, cfg, mesh)
+    data = data_partition(path, shape, mesh, layout)
+    shared = None
+    if model is not None and "ssm" in path:
+        shared = _mamba_shared(path[path.index("ssm") + 1], cfg, mesh.model)
+    return Piece(model, None if data is None else data[0], shared)
+
+
+def train_pieces(cfg, params_like, mesh: Grid, layout: str = "tp2d"):
+    """Tree of `Piece`s matching a whole param tree (tensors, on the
+    `meta` device or not)."""
+    return map_leaves(
+        lambda p, v: train_piece(p, tuple(v.shape), cfg, mesh, layout),
+        params_like)
+
+
+def _mamba_shared(key: str, cfg, m: int):
+    """The B/C slice of a head-split Mamba leaf `key` (in the rank's
+    part: z | x | B | C | dt for in_proj, x | B | C for conv)."""
+    dil, ds = cfg.d_inner // m, cfg.ssm_state
+    if key == "in_proj":
+        return 1, 2 * dil, 2 * dil + 2 * ds
+    if key == "conv_w":
+        return 1, dil, dil + 2 * ds
+    if key == "conv_b":
+        return 0, dil, dil + 2 * ds
+    return None

@@ -9,6 +9,11 @@ global clip, another decay form), so it is not used.  The update runs
 in place under `torch.no_grad()`, the counterpart of the reference's
 donated buffers: the new parameter is cast back to the parameter's
 dtype and written into it; `m`, `v` and `step` (int32) likewise.
+
+Under a grid (`train_step.make_train_step(..., grid=)`) the update runs
+elementwise on each rank's block of every leaf and its moments; only
+the global norm needs the other ranks (`global_norm(..., pieces=,
+grid=)`).
 """
 from __future__ import annotations
 
@@ -56,19 +61,50 @@ def init_opt_state(params) -> dict:
             "step": torch.zeros((), dtype=torch.int32, device=first.device)}
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, *, pieces=None, grid=None) -> torch.Tensor:
     """√(Σ x²) over every leaf, in fp32 (leaves summed one after another,
-    as the reference's Python `sum`)."""
-    return torch.sqrt(sum(x.float().square().sum() for x in leaves(tree)))
+    as the reference's Python `sum`).
+
+    With `pieces` (a tree of `sharding.Piece` like `tree`) and `grid`,
+    `tree` holds this rank's blocks and the norm is the whole tree's:
+    each rank sums the squares of the elements it counts
+    (`Piece.counted`: each element once, though several ranks hold
+    it), and the sums are added over the model and the data axes."""
+    if pieces is None:
+        return torch.sqrt(sum(x.float().square().sum()
+                              for x in leaves(tree)))
+    import torch.distributed as dist
+
+    total = sum(p.counted(grid, x) for p, x in zip(leaves(pieces),
+                                                   leaves(tree)))
+    for group in (grid.model_group, grid.data_group):
+        if dist.get_world_size(group) > 1:
+            total = _summed(total, group)
+    return torch.sqrt(total)
+
+
+def _summed(x: torch.Tensor, group) -> torch.Tensor:
+    """A scalar summed over `group` (through the host under gloo)."""
+    import torch.distributed as dist
+
+    y = x.detach().reshape(1).to(
+        x.device if dist.get_backend(group) == "nccl" else "cpu",
+        torch.float32, copy=True)
+    dist.all_reduce(y, group=group)
+    return y[0].to(x.device)
 
 
 @torch.no_grad()
-def adamw_update(cfg: AdamWConfig, grads, opt_state, params):
+def adamw_update(cfg: AdamWConfig, grads, opt_state, params, *,
+                 gnorm=None):
     """One AdamW step written into `params` and `opt_state` in place.
     Returns (params, opt_state, {"grad_norm", "lr"}), the metrics as
-    fp32 scalar tensors (no host synchronization)."""
+    fp32 scalar tensors (no host synchronization).  `gnorm`: the
+    gradients' global norm where the caller computed it (a sharded
+    step), else `global_norm(grads)`."""
     step = opt_state["step"] + 1
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     lr = lr_at(cfg, step).to(gnorm.device)
     b1, b2 = cfg.beta1, cfg.beta2

@@ -1,11 +1,26 @@
 """Train-step construction: loss and gradients, then the AdamW update.
 
-Counterpart of `repro/train/train_step.py` on one device, with its
-microbatch gradient accumulation, activation remat, query-chunked
-attention and sequence-chunked loss.  Parameters are fp32 masters,
-updated in place (the reference donates them); the sharded layouts of
-the reference (`pick_layout`, `param_shardings`) are not ported yet,
-so nothing here takes a mesh.
+Counterpart of `repro/train/train_step.py`, with its microbatch
+gradient accumulation, activation remat, query-chunked attention and
+sequence-chunked loss.  Parameters are fp32 masters, updated in place
+(the reference donates them).
+
+On one device the step takes the whole tree.  Under a data × model
+grid (`launch.mesh.make_grid`; one process per rank) it takes the
+reference's 2-D layout, `pick_layout`'s 'tp2d': tensor parallelism over
+the model axis and ZeRO-3 over the data axis.  A rank holds its
+`sharding.Piece` of every leaf, of its gradient and of its AdamW
+moments (`opt_state_shardings`: m and v mirror the params, the step is
+replicated): the intersection of its model-axis part and its block of
+the leaf's DP dim.  The step keeps the rank's rows of the global batch
+(`sharding.local_batch`) and runs the loss under `parallel.tp`: each
+layer gathers its leaves over the data axis inside the rematerialized
+layer (backward: their gradient reduce-scattered over it), the
+collectives of the model axis pass gradients as `parallel.tp` says,
+the loss is the rank's share of the whole batch's mean, and the leaves
+the data axis leaves whole have their gradient summed over it.  The
+global norm counts each element of the whole gradient once
+(`optimizer.global_norm`), and AdamW runs elementwise on the blocks.
 """
 from __future__ import annotations
 
@@ -15,7 +30,11 @@ import torch
 
 from ..device import resolve_device
 from ..models import transformer as T
-from .optimizer import AdamWConfig, adamw_update, init_opt_state
+from ..parallel import tp
+from ..parallel.sharding import (in_order_of, local_batch, map_leaves,
+                                 opt_state_shardings, pick_layout,
+                                 train_pieces)
+from .optimizer import AdamWConfig, adamw_update, global_norm, init_opt_state
 from .tree import leaves, unflatten
 
 
@@ -47,8 +66,25 @@ def _grads(loss, params, batch):
     return l.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
 
+def pieces_of(cfg, grid):
+    """The `sharding.Piece` of every param leaf on `grid` (the 'tp2d'
+    layout; raises where a config takes another)."""
+    layout = pick_layout(cfg, grid)
+    if layout != "tp2d":
+        raise ValueError(f"{cfg.name}: layout {layout!r} on a model axis of "
+                         f"{grid.model}; the port trains 'tp2d' only")
+    return train_pieces(cfg, abstract_params(cfg), grid, layout)
+
+
+def state_pieces(cfg, grid):
+    """Pieces of a {"p": params, "o": opt_state} tree (what `launch.train`
+    checkpoints): the moments mirror the params, the step is whole."""
+    pieces = pieces_of(cfg, grid)
+    return {"p": pieces, "o": opt_state_shardings(None, pieces, grid)}
+
+
 def make_train_step(cfg, opt_cfg: AdamWConfig, opts: TrainOptions, *,
-                    device="cuda"):
+                    device="cuda", grid=None):
     """Returns step(params, opt_state, batch) -> (params, opt_state,
     metrics), `params` and `opt_state` updated in place.  `batch` is
     moved to `device` (a CUDA device raises without a card).
@@ -58,9 +94,18 @@ def make_train_step(cfg, opt_cfg: AdamWConfig, opts: TrainOptions, *,
     the loss is the mean of the microbatch losses, and
     `metrics["tokens"]` is 0, as in the reference.  Attention chunks its
     queries by `q_chunk` where the sequence is at least twice that
-    (`_needs_chunk`, decided on the batch's shape)."""
+    (`_needs_chunk`, decided on the batch's shape).
+
+    With `grid`, `params` and `opt_state` hold this rank's pieces
+    (`init_train_state(..., grid=)`), `batch` is the global batch, and
+    the metrics are the whole batch's, equal on every rank (see the
+    module).  The step also carries `step.gradients(params, batch)` ->
+    (loss, metrics, this rank's gradient blocks) and `step.pieces`."""
     device = resolve_device(device)
     losses = {}
+    pieces = None if grid is None else pieces_of(cfg, grid)
+    zero = (None if pieces is None or grid.data == 1 else
+            map_leaves(lambda _, p: p.data, pieces))
 
     def loss_for(batch):
         q = opts.q_chunk if _needs_chunk(cfg, batch, opts) else 0
@@ -88,13 +133,54 @@ def make_train_step(cfg, opt_cfg: AdamWConfig, opts: TrainOptions, *,
         l = tot / A
         return l, {"loss": l, "tokens": torch.zeros((), device=device)}, g
 
-    def step(params, opt_state, batch):
+    def gradients(params, batch):
         batch = {k: v.to(device) for k, v in batch.items()}
-        l, metrics, g = grads_of(params, batch)
-        params, opt_state, om = adamw_update(opt_cfg, g, opt_state, params)
+        if grid is None:
+            return grads_of(params, batch)
+        B = next(iter(batch.values())).shape[0]
+        lo, n = local_batch(B, grid)
+        if grid.data > 1 and n == B:
+            raise ValueError(f"a batch of {B} rows does not split over a "
+                             f"data axis of {grid.data}")
+        ctx = tp.Ctx(grid, cfg, batch_sharded=n < B, zero=zero)
+        with tp.using(ctx):
+            l, metrics, g = grads_of(params, {k: v[lo:lo + n]
+                                              for k, v in batch.items()})
+            _sum_whole_over_data(g, in_order_of(g, pieces), grid)
+            l = tp.data_sum(l)
+        return l, {**metrics, "loss": l}, g
+
+    def step(params, opt_state, batch):
+        l, metrics, g = gradients(params, batch)
+        gnorm = (None if grid is None else global_norm(
+            g, pieces=in_order_of(g, pieces), grid=grid))
+        params, opt_state, om = adamw_update(opt_cfg, g, opt_state, params,
+                                             gnorm=gnorm)
         return params, opt_state, {**metrics, **om}
 
+    step.gradients = gradients
+    step.pieces = pieces
     return step
+
+
+def _sum_whole_over_data(grads, pieces, grid) -> None:
+    """Sum, over the data axis and in place, the gradients of the leaves
+    the data axis leaves whole (every data rank holds them and saw its
+    own rows), in one flat fp32 buffer (the blocks of the split leaves
+    came back summed from their gathers' backward).  Runs under the
+    step's context, which splits the batch."""
+    if grid.data == 1:
+        return
+    whole = [g for p, g in zip(leaves(pieces), leaves(grads))
+             if p.data is None]
+    if not whole:
+        return
+    flat = tp.data_sum(torch.cat([g.reshape(-1).float() for g in whole]))
+    at = 0
+    with torch.no_grad():
+        for g in whole:
+            g.copy_(flat[at:at + g.numel()].view_as(g))
+            at += g.numel()
 
 
 def abstract_params(cfg):
@@ -103,9 +189,18 @@ def abstract_params(cfg):
     return T.init(cfg, 0, "meta")
 
 
-def init_train_state(cfg, *, seed: int = 0, device="cuda"):
+def init_train_state(cfg, *, seed: int = 0, device="cuda", grid=None):
     """fp32 master params from `seed` (`models.transformer.init`) and a
-    zeroed optimizer state, on `device`."""
+    zeroed optimizer state, on `device`.  With `grid`, this rank's
+    pieces: every rank draws the same whole masters part by part and
+    keeps its piece of each (`pieces_of`), so one part at a time is
+    whole on the device."""
     device = resolve_device(device)
-    params = T.init(cfg, seed, device)
+    if grid is None:
+        params = T.init(cfg, seed, device)
+    else:
+        from ..convert import shard_params
+
+        params = T.init(cfg, seed, device, shard=lambda part: shard_params(
+            part, cfg, grid, zero=True))
     return params, init_opt_state(params)

@@ -3,8 +3,9 @@
 one process, `launch.gateway --model-axis 2` under torchrun gives
 `launch.serve`'s, a world the model axis does not divide exits
 non-zero, decode checkpoints are written per rank and resume only
-under the grid that wrote them, and `launch.train --model-axis 2`
-still raises.  The launches start together, in two waves (the resumes
+under the grid that wrote them, and `launch.train --model-axis 2` in
+one process raises (2 does not divide a world of one rank; sharded
+training is tests/test_torch_tp_train*.py's).  The launches start together, in two waves (the resumes
 need the first wave's checkpoints).
 """
 import os
@@ -113,8 +114,10 @@ def test_checkpoints_resume_only_under_their_grid(runs, tmp_path_factory):
 
 
 def test_train_model_axis_2_still_raises():
+    """In one process (a world of one rank) `--model-axis 2` raises: 2
+    does not divide the world."""
     from repro_torch.launch import train
 
-    with pytest.raises(NotImplementedError, match="queue 1"):
+    with pytest.raises(ValueError, match="does not divide the world of 1"):
         train.main(["--arch", "qwen3-1.7b", "--smoke", "--device", "cpu",
                     "--model-axis", "2"])

@@ -113,7 +113,9 @@ def test_preemption_checkpoints_and_exits_cleanly(sig, tmp_path):
 
 
 def test_model_axis_other_than_one_raises():
-    with pytest.raises(NotImplementedError, match="sharding"):
+    """One process is a world of one rank: a model axis of 2 does not
+    divide it (sharded training runs under torchrun)."""
+    with pytest.raises(ValueError, match="does not divide the world"):
         train_main(COMMON + ["--steps", "1", "--model-axis", "2"])
 
 

@@ -113,21 +113,32 @@ def finish_reference(procs, timeout=240):
         assert proc.returncode == 0, out[-4000:]
 
 
-def load(out_dir, arch):
-    """(port params, torch batch) of `arch` from `write_inputs`' files."""
-    from repro_torch.convert import lm_params_from_reference
-
+def nested(flat: dict) -> dict:
+    """A nested dict from flat "a/b/c" key paths."""
     tree: dict = {}
-    for key, a in np.load(f"{out_dir}/{arch}.weights.npz").items():
+    for key, a in flat.items():
         node = tree
         *head, last = key.split("/")
         for k in head:
             node = node.setdefault(k, {})
         node[last] = a
+    return tree
+
+
+def load_weights(out_dir, arch):
+    """The port params of `arch` from `write_inputs`' weights file."""
+    from repro_torch.convert import lm_params_from_reference
+
+    return lm_params_from_reference(
+        nested(dict(np.load(f"{out_dir}/{arch}.weights.npz"))))
+
+
+def load(out_dir, arch):
+    """(port params, torch batch) of `arch` from `write_inputs`' files."""
     batch = {k: torch.from_numpy(v).long() if v.dtype == np.int32
              else torch.from_numpy(v)
              for k, v in np.load(f"{out_dir}/{arch}.batch.npz").items()}
-    return lm_params_from_reference(tree), batch
+    return load_weights(out_dir, arch), batch
 
 
 def serve(cfg, params, batch, grid=None):
