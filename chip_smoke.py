@@ -242,6 +242,19 @@ run outside a checkout of this repository.  Phases, one line each:
     jamba-v0.1-52b cut to 8 layers at model 4 and qwen2-vl-72b cut to 4
     at data 2 x model 2, 2 steps each under NCCL (a card per rank);
     with fewer, a line saying it was skipped.
+21. the dry-run (`repro_torch.launch.dryrun.run_cell`, as `python -m
+    repro_torch.launch.dryrun` runs it; `DRYRUN_CELLS`): the graph cell
+    (house on rmat(16, 12), rank 0's stripe of 16 at capacity 2^15)
+    counted on the card under the op walk, its K1 launches equal to the
+    kernel calls the walk recorded and its count and `max_needed` equal
+    to a count of the same stripe on one device; then qwen3-1.7b
+    train_4k, granite-moe-1b-a400m prefill_32k (MoE and K4),
+    jamba-v0.1-52b long_500k on the one-pod grid and qwen2-vl-72b
+    train_4k on the two-pod grid, each one rank's step on meta tensors
+    under a fake process group of 256 / 512 ranks: no launch, K4
+    recorded once per flash-eligible call of a prefill (24).  Each
+    cell's roofline terms print on a line of their own; the phase must
+    take less than 90 s.
 
 Every count of phases 3–4 sets K1's launch counters to 0 just before it
 and reads them just after; a kernel-path count must launch exactly the
@@ -265,7 +278,9 @@ prefill compared, the family's flash-eligible calls per prefill; in
 phase 18 K4's, around each train step, none; in phase 19 each rank's
 K4 counters, around its served prefill and decode calls, its
 flash-eligible calls per prefill and none in decode; in phase 20 each
-rank's K4 counters, around each train step, none.
+rank's K4 counters, around each train step, none; in phase 21 K1's,
+around the graph cell, equal to the walk's kernel calls, and none
+around each LM cell on meta.
 
 Counts are integers and every comparison of phases 2–6 and 10–16 is
 exact (no tolerance).  The last two lines are the kernels record (K1's
@@ -280,8 +295,10 @@ runs; `gateway_sharded_launches`: the same in phase 16's gateway; K4's
 `train_launches`: its launches in phase 18's train steps, 0,
 `train_launches_per_step` by arch, `tp_launches`: its launches per
 rank per prefill in phase 19, by arch, and `tp_train_launches`: its
-launches per rank per step in phase 20, by run) and the device record
-(JSON).
+launches per rank per step in phase 20, by run; K1's `dryrun_launches`:
+its launches per mode in phase 21's graph cell; K4's
+`dryrun_meta_calls`: its calls on meta per LM cell of phase 21) and
+the device record (JSON).
 """
 from __future__ import annotations
 
@@ -294,6 +311,11 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
+
+# The kernels' bounds (bytes over HBM's rate against operations over the
+# type's peak), shared with the dry-run's roofline.
+from repro_torch.roofline.kernels import (bound_of, k4_bound,  # noqa: E402
+                                          membership_bound, rows_bound_of)
 
 # Reference counts on tiny-er (256 vertices, 1,991 edges), from the JAX
 # package's brute-force oracle (repro.core.oracle.count_embeddings_oracle).
@@ -308,11 +330,6 @@ WIKI_TRIANGLES = 705_626
 WIKI_P1 = 28_141_992_173
 WIKI_CAPACITY = 1 << 20
 WIKI_ROOTS = (96, 112)            # ~2.5% of P1's frontier rows
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
-# H100 SXM float32 outside the tensor cores (data sheet): K1's integer
-# compares run on the same cores, whose int32 rate is no higher, so
-# operations over this rate are still a least time.
-CORE_OPS_PER_S = 67e12
 
 
 def log(msg: str) -> None:
@@ -754,35 +771,6 @@ def time_ms(fn, iters=20):
     return start.elapsed_time(stop) / iters
 
 
-def bound_of(cand, starts, lens, extra, valid, count, window):
-    """Least time for one launch: each input read once — cand, valid,
-    starts/lens, extra, and each distinct predecessor row this launch
-    searches (rows recur across frontier rows; they are counted once) —
-    and each output written once, over HBM bandwidth; against the
-    compares these inputs need (a full binary search of each valid
-    candidate in each predecessor row, plus one compare per extra) over
-    the cores' rate.  Returns (ms, "bytes" or "operations")."""
-    import torch
-
-    B, D = cand.shape
-    P = starts.shape[0]
-    key = (starts.to(torch.int64) << 32) | lens.clamp(max=window).to(
-        torch.int64)
-    rows = int((torch.unique(key) & 0xFFFFFFFF).sum())
-    nbytes = (4 * B * D + (B * D if valid is not None else 0) + 4 * rows
-              + 8 * P * B + (4 * extra.numel() if extra is not None else 0)
-              + (4 * B if count else B * D))
-    n_valid = (valid.sum(dim=1) if valid is not None
-               else torch.full((B,), D, device=cand.device)).double()
-    steps = torch.ceil(torch.log2(
-        lens.clamp(min=0, max=window).double() + 1)).sum(dim=0)
-    E = extra.shape[1] if extra is not None else 0
-    compares = float((n_valid * (steps + E)).sum())
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = compares / CORE_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
 ROW_ARGS = ("csrc", "cstart", "clen", "flat", "starts", "lens", "own",
             "extra", "rows")
 
@@ -925,7 +913,7 @@ def time_compact(best, window_record=False, full=False,
     plain_ms = time_ms(timed(runs["plain"]), iters=5)
     bound_ms, bound_by = rows_bound_of(
         *args[:8], None, dirs=a["dirs"], width=a["width"],
-        window=a["window"], written=written)
+        window=a["window"], written=written)[:2]
     rec = {"what": what, "ms": ms, **parts, "plain_ms": plain_ms,
            "bound_ms": bound_ms, "bound_by": bound_by}
     if window_record:
@@ -939,7 +927,7 @@ def time_compact(best, window_record=False, full=False,
         torch.cuda.synchronize()
         check(torch.equal(got, want), "K1 window != plain on recorded mask")
         w_bound, w_by = bound_of(cand, a["starts"], a["lens"], a["extra"],
-                                 ok, False, a["window"])
+                                 ok, False, a["window"])[:2]
         rec["window"] = {
             "ms": parts["window_ms"],
             "plain_ms": time_ms(lambda: level_expand_ref(*win, **wkw),
@@ -1181,7 +1169,7 @@ def time_rows(mode, best, arrays, W) -> dict:
     ms = time_ms(lambda: intersect.level_rows_cuda(*args, **kw))
     comp_ms = time_ms(lambda: composition(*args, **kw))
     plain_ms = time_ms(lambda: level_expand_rows_ref(*args, **kw), iters=5)
-    bound_ms, bound_by = rows_bound_of(*args, **kw)
+    bound_ms, bound_by = rows_bound_of(*args, **kw)[:2]
     P, B = starts.shape
     Q = 0 if neg is None else neg.shape[1]
     group = intersect.load().level_rows_group(kw["width"])
@@ -1189,60 +1177,6 @@ def time_rows(mode, best, arrays, W) -> dict:
                     f"E={len(kw['dirs'])} group={group}",
             "ms": ms, "composition_ms": comp_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by}
-
-
-def rows_bound_of(csrc, cstart, clen, flat, starts, lens, own, extra, neg,
-                  *, dirs, width, window, written=None):
-    """Least time for one launch of the row-sourced kernel.  Bytes: the
-    per-row inputs (cstart, clen, starts/lens, own, extra, neg) and the
-    int32 output once each, and each distinct CSR row the launch must
-    read once (candidate rows; predecessor rows other than own; own rows
-    too where prefix columns are searched there), over HBM bandwidth.
-    `written` given (the mask-and-compact entry): the int32 output is
-    the `rows` input instead, and each of the `written` pairs below the
-    capacity adds 8 bytes (parent and newcol).
-    Operations: a full binary search of each candidate left by the > / <
-    comparisons in each other row plus its != compares, a search per
-    comparison to cut the range, and a search of each prefix column in
-    every row plus its compares, over the cores' rate.  Returns (ms,
-    "bytes" or "operations")."""
-    import torch
-
-    from repro_torch.kernels.ref import gather_window
-
-    P, B = starts.shape
-    Q = 0 if neg is None else neg.shape[1]
-    E = len(dirs)
-    dev = cstart.device
-    n_own = 0 if own is None else 1
-    own = (torch.full((B,), -1, dtype=torch.int32, device=dev)
-           if own is None else own)
-    plen = lens.clamp(min=0, max=window)
-    clen_w = clen.clamp(min=0, max=width)
-    searched = torch.arange(P, device=dev)[:, None] != own[None, :]
-    keys = [(cstart.to(torch.int64) << 32) | clen_w.to(torch.int64)]
-    pkeys = (starts.to(torch.int64) << 32) | plen.to(torch.int64)
-    keys.append(pkeys[searched] if Q == 0 else pkeys.reshape(-1))
-    rows = int((torch.unique(torch.cat(keys)) & 0xFFFFFFFF).sum())
-    nbytes = (4 * B * (2 + 2 * P + n_own + E + Q + 1)
-              + 4 * rows + 8 * (written or 0))
-    cand, ok = gather_window(csrc, cstart, clen, width)
-    for e, d in enumerate(dirs):
-        if d:
-            ev = extra[:, e][:, None]
-            ok &= (cand > ev) if d > 0 else (cand < ev)
-    n_in = ok.sum(dim=1).double()
-    steps = torch.ceil(torch.log2(plen.double() + 1))
-    other = (steps * searched).sum(dim=0)
-    n_range = sum(1 for d in dirs if d)
-    n_ne = E - n_range
-    compares = float((n_in * (other + n_ne)).sum()
-                     + n_range * torch.ceil(torch.log2(
-                         clen_w.double() + 1)).sum()
-                     + Q * (steps.sum(dim=0) + E).sum())
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = compares / CORE_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def profile_count(what, graph, plan, cfg, arrays, roots, want, card):
@@ -1348,7 +1282,6 @@ TP_K4 = [((128, 16, 2048, 2048, 128), True), ((64, 16, 2048, 2048, 128), True),
 WGMMA_CASES += TP_K4
 # The reference's own tolerances (tests/test_flash_kernel.py:39).
 FLASH_ATOL = {"bfloat16": 3e-2, "float32": 2e-5}
-BF16_FLOPS = 989e12              # H100 SXM dense bf16 tensor cores
 
 
 def flash_inputs(shape, dtype, seed):
@@ -1888,22 +1821,6 @@ def serve_phase(card):
     return served_launches
 
 
-def k4_bound(shape, causal):
-    """(bound_ms, bound_by, FLOP, bytes) of one K4 launch: its matmul
-    FLOP (causal: the pairs on or below the diagonal only) over the
-    card's bf16 tensor-core peak, against q, k, v read once and o
-    written once over HBM's rate."""
-    BH, BK, Sq, Sk, hd = shape
-    pairs = Sq * (Sq + 1) / 2 if causal else Sq * Sk
-    flops = 4.0 * BH * hd * pairs
-    nbytes = 2 * (2 * BH * Sq * hd + 2 * BK * Sk * hd)
-    t_ops = flops / BF16_FLOPS * 1e3
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    if t_ops >= t_bytes:
-        return t_ops, "operations", flops, nbytes
-    return t_bytes, "bytes", flops, nbytes
-
-
 def time_k4_case(shape, causal, seed, batch=4, iters=50):
     """K4's wgmma kernel, its plain version and PyTorch's
     `scaled_dot_product_attention` (the rows viewed as `batch` sequences
@@ -2181,23 +2098,6 @@ def check_membership(gen, errs) -> int:
     return n
 
 
-def membership_bound(B, D, L, count, ragged=False):
-    """Least time for one K2/K3 launch: cand and nbr read once (4 B per
-    entry), nbr_len (4 B a row) and cand_valid (1 B a candidate) where
-    passed, and the output written once (1 B per candidate, or 4 B per
-    row), over HBM bandwidth; against a binary search of each candidate,
-    ceil(log2(L + 1)) compares, over the cores' rate."""
-    import math
-
-    nbytes = 4 * B * D + 4 * B * L + (4 * B if count else B * D)
-    if ragged:
-        nbytes += 4 * B + B * D
-    compares = B * D * math.ceil(math.log2(L + 1))
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = compares / CORE_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
 PROFILE_TRIES = 4
 
 
@@ -2274,7 +2174,7 @@ def membership_step0(gen, card) -> None:
                   f"first version {k} != plain at {(B, D, L)}")
             ms = time_ms(lambda: membership_linear_cuda(cand, nbr,
                                                         count=count))
-            bound_ms, _ = membership_bound(B, D, L, count)
+            bound_ms = membership_bound(B, D, L, count).ms
             log(f"phase 11: step 0: first version {k} B={B} D={D} L={L}: "
                 f"ms={ms:.4f} bound_ms={bound_ms:.4f} "
                 f"({100 * bound_ms / ms:.1f}% of bound) on {card}")
@@ -2323,7 +2223,7 @@ def time_membership(gen, card, errs) -> dict:
                 cand, nbr, count=count))
             plain_ms = time_ms(lambda: membership_plain(cand, nbr, count),
                                iters=5)
-            bound_ms, bound_by = membership_bound(B, D, L, count)
+            bound_ms, bound_by = membership_bound(B, D, L, count)[:2]
             extra = ""
             if B <= 4096:
                 dev, n_dev = device_ms(lambda: membership_cuda(
@@ -2365,7 +2265,7 @@ def time_membership(gen, card, errs) -> dict:
                       f"ragged {k} != the first version at {(B, D, L)}")
                 ms = time_ms(lambda: fn(cand, nbr, valid, nbr_len))
                 first_ms = time_ms(padded_first)
-                bound_ms, _ = membership_bound(B, D, L, count, ragged=True)
+                bound_ms = membership_bound(B, D, L, count, ragged=True).ms
                 log(f"phase 11: {k} ragged (nbr_len, cand_valid) B={B} "
                     f"D={D} L={L}: ops ms={ms:.4f} (the kernel reads them); "
                     f"padded copies + first version ms={first_ms:.4f}; "
@@ -4642,6 +4542,93 @@ def tp_train_phase(card) -> dict:
     log(f"phase 20: sharded training in {time.perf_counter() - t_phase:.1f}s")
     return launches
 
+# ------------------------------------------------------------ phase 21 --
+# The dry-run's cells (`repro_torch.launch.dryrun`): the graph cell on
+# the card, then LM cells on `meta` tensors on the production grids (a
+# fake process group of 256 or 512 ranks): a dense train step, a prefill
+# with MoE and K4, a long-context hybrid decode, a train step on the
+# two-pod grid.
+DRYRUN_CELLS = [("qwen3-1.7b", "train_4k", "single"),
+                ("granite-moe-1b-a400m", "prefill_32k", "single"),
+                ("jamba-v0.1-52b", "long_500k", "single"),
+                ("qwen2-vl-72b", "train_4k", "multi")]
+DRYRUN_LIMIT_S = 90.0
+DRYRUN_TERMS = ("flops_per_device", "bytes_per_device",
+                "coll_bytes_per_device", "coll_breakdown", "model_flops",
+                "peak_memory_bytes", "compute_s", "memory_s", "collective_s",
+                "bottleneck", "useful_flops_ratio", "step_time_s",
+                "roofline_fraction", "compile_seconds", "kernel_calls",
+                "kernel_compares", "count", "max_needed", "overflowed")
+
+
+def dryrun_phase(card) -> dict:
+    """Phase 21: `launch.dryrun`'s cells through `run_cell`, as `python
+    -m repro_torch.launch.dryrun` runs them.  The graph cell counts rank
+    0's stripe on the card: K1's launches (counters set to 0 just before
+    it, read just after) must equal the kernel calls its walk recorded,
+    and its count and frontier demand must equal a count of the same
+    stripe on one device outside the walk.  Each LM cell runs on meta
+    tensors: no kernel launched, K4 recorded once per flash-eligible
+    attention call of a prefill (`transformer.flash_calls`).  Each
+    cell's terms print on a line of their own; the phase must take
+    less than DRYRUN_LIMIT_S."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.models.transformer import flash_calls
+
+    t_phase = time.perf_counter()
+    out = {"launches": {}, "flash": {}}
+    graph = dryrun.graphpi_graph()          # made once, for both counts
+    with tempfile.TemporaryDirectory() as out_dir:
+        ops.reset_launches()
+        rec = dryrun.run_cell("graphpi", "count", "single", out_dir,
+                              device=DEVICE, graph=graph)
+        launched = {k: v for k, v in ops.launches.items() if v}
+        log(f"phase 21: graphpi count single: K1 launches {launched}, "
+            f"recorded {rec['kernel_calls']}")
+        check(DEVICE == "cpu" or (launched and launched == rec["kernel_calls"]
+                                  and set(launched) <= set(ops.K1_MODES)),
+              f"graph cell's K1 launches {launched} != its recorded calls "
+              f"{rec['kernel_calls']}")
+        out["launches"] = launched
+        with dryrun.fake_world(256):
+            fn, a, v0, plan, _ = dryrun.graphpi_stripe(
+                dryrun.production_grid("single"), device=DEVICE, graph=graph)
+        cnt, needed = fn(a.indptr, a.degrees, a.flat, a.labs, v0)
+        one = (int(cnt) // plan.iep_divisor, int(needed))
+        check(one == (rec["count"], rec["max_needed"]),
+              f"graph cell (count, max_needed) {rec['count']}, "
+              f"{rec['max_needed']} != one device's {one}")
+        del fn, a, v0
+        log("phase 21: graphpi count single terms: " + json.dumps(
+            {k: rec[k] for k in DRYRUN_TERMS if k in rec}))
+        for arch, shape, mesh in DRYRUN_CELLS:
+            ops.reset_launches()
+            rec = dryrun.run_cell(arch, shape, mesh, out_dir)
+            check(not any(ops.launches.values()),
+                  f"{arch} {shape} {mesh}: launches on meta {ops.launches}")
+            cfg = get_config(arch)
+            # every prompt length here is a multiple of 512
+            want = flash_calls(cfg) if SHAPES[shape].kind == "prefill" else 0
+            got = rec["kernel_calls"].get("flash", 0)
+            check(got == want, f"{arch} {shape}: K4 recorded {got} times, "
+                               f"want {want}")
+            out["flash"][f"{arch} {shape} {mesh}"] = got
+            log(f"phase 21: {arch} {shape} {mesh} terms: " + json.dumps(
+                {k: rec[k] for k in DRYRUN_TERMS if k in rec}))
+    torch.cuda.empty_cache()
+    dt = time.perf_counter() - t_phase
+    log(f"phase 21: dry-run in {dt:.1f}s on {card}")
+    check(dt < DRYRUN_LIMIT_S, f"phase 21 took {dt:.1f}s (limit "
+                               f"{DRYRUN_LIMIT_S:g}s)")
+    return out
+
+
 # ------------------------------------------------------------- phase 1 --
 def ptxas_summary(log_text: str) -> list:
     """(kernel, registers, spill store bytes, spill load bytes) for each
@@ -4760,6 +4747,13 @@ def main() -> int:
     for k in kernels:
         if k["name"] == "flash_attention":
             k["tp_train_launches"] = tp_train
+    dry = dryrun_phase(card)
+    for k in kernels:
+        mode = k["name"].removeprefix("level_expand.")
+        if mode in ("mask", "count", "signed"):
+            k["dryrun_launches"] = dry["launches"].get(mode, 0)
+        if k["name"] == "flash_attention":
+            k["dryrun_meta_calls"] = dry["flash"]
     log(f"done in {time.perf_counter() - t_all:.1f}s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

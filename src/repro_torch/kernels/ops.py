@@ -17,6 +17,14 @@ CPU tensors to the plain PyTorch versions (`ref.level_expand_ref`,
 `ref.flash_attention_ref`).  They never fall back from one to the
 other: a build or launch failure raises.
 
+On `meta` tensors (the dry-run's walk) K2, K3 and K4 return an empty
+output of the kernel's shape and dtype and launch nothing; K1, whose
+work is its rows' values, refuses them.  While a walk
+(`roofline.op_cost.OpCost`) is active every call reports the kernel's
+work on its inputs (`roofline.kernels`' bounds) to it, on every route,
+and the plain version's own ops are not recorded: they stand for the
+kernel.
+
 `launches` counts entry calls that launched kernels: K1 per mode
 (`mask`, `count`, `signed`, whichever entry launched it; one per call),
 K2 as `membership`, K3 as `intersect_count`, K4 as `flash` (and per K4
@@ -27,8 +35,13 @@ only where its CUDA kernel is launched.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
+from ..roofline import op_cost as _op_cost
+from ..roofline.kernels import (bound_of, k4_bound, membership_bound,
+                                rows_bound_of)
 from . import flash_attention as _k4
 from . import intersect as _k1
 from . import membership as _k23
@@ -96,13 +109,44 @@ def flat_gather_pad() -> int:
 
 def _route(device: torch.device) -> str:
     """Which version of a kernel runs for tensors on `device`: the CUDA
-    kernel on a card, the plain version on the CPU; anything else is
-    refused."""
+    kernel on a card, the plain version on the CPU, none on `meta` (an
+    empty output: the dry-run's walk); anything else is refused."""
     if device.type == "cuda":
         return "kernel"
     if device.type == "cpu":
         return "plain"
-    raise ValueError(f"the port's kernels run on cuda or cpu, not {device}")
+    if device.type == "meta":
+        return "meta"
+    raise ValueError(f"the port's kernels run on cuda, cpu or meta, not "
+                     f"{device}")
+
+
+def _k1_route(device: torch.device) -> str:
+    route = _route(device)
+    if route == "meta":
+        raise ValueError("K1's work depends on the values of its rows, and "
+                         "meta tensors hold none: count on a device")
+    return route
+
+
+def _walk(n: int):
+    """The active dry-run walk where a call with `n` rows does work,
+    else None."""
+    return _op_cost.active() if n else None
+
+
+def _quiet(walk):
+    """Leave the body out of `walk` (the plain version standing for a
+    kernel)."""
+    return walk.paused() if walk is not None else contextlib.nullcontext()
+
+
+def _report(walk, key: str, shape, bound, *args, **kw) -> None:
+    """Add one call of kernel `key` (an `ops.launches` key) to `walk`:
+    the work `bound(*args, **kw)` counts on its inputs."""
+    if walk is not None:
+        with walk.paused():
+            walk.kernel(key, bound(*args, **kw), shape)
 
 
 def _check(name, t, dtype, shape, device):
@@ -150,10 +194,16 @@ def level_expand(
         cand, flat, starts, lens, extra, cand_valid, dirs=dirs, count=count,
         neg_from=neg_from)
     dev = cand.device
-    if _route(dev) == "plain":
-        return level_expand_ref(cand, flat, starts, lens, extra, cand_valid,
-                                dirs=dirs, count=count, neg_from=neg_from,
-                                window=window)
+    mode = "mask" if not count else ("count" if neg_from is None
+                                     else "signed")
+    route, walk = _k1_route(dev), _walk(B)
+    _report(walk, mode, (B, D), bound_of, cand, starts, lens, extra,
+            cand_valid, count, window)
+    if route == "plain":
+        with _quiet(walk):
+            return level_expand_ref(cand, flat, starts, lens, extra,
+                                    cand_valid, dirs=dirs, count=count,
+                                    neg_from=neg_from, window=window)
     if B == 0:
         shape = (0,) if count else (0, D)
         return torch.zeros(shape, dtype=torch.int32 if count else torch.bool,
@@ -161,8 +211,6 @@ def level_expand(
     out = level_expand_cuda(cand, flat, starts, lens, extra, cand_valid,
                             dirs=dirs, count=count, neg_from=neg_from,
                             window=window)
-    mode = "mask" if not count else ("count" if neg_from is None
-                                     else "signed")
     launches[mode] += 1
     return out
 
@@ -294,17 +342,22 @@ def level_expand_rows(
     P, B, dev, dirs, extra = validate_level_expand_rows(
         csrc, cstart, clen, flat, starts, lens, own, extra, neg, dirs=dirs,
         width=width)
+    route = _k1_route(dev)
     _check_own(own, P, B)
-
-    if _route(dev) == "plain":
-        return level_expand_rows_ref(csrc, cstart, clen, flat, starts, lens,
-                                     own, extra, neg, dirs=dirs, width=width,
-                                     window=window)
+    mode, walk = "count" if neg is None else "signed", _walk(B)
+    _report(walk, mode, (B,), rows_bound_of, csrc, cstart, clen, flat,
+            starts, lens, own, extra, neg, dirs=dirs, width=width,
+            window=window)
+    if route == "plain":
+        with _quiet(walk):
+            return level_expand_rows_ref(csrc, cstart, clen, flat, starts,
+                                         lens, own, extra, neg, dirs=dirs,
+                                         width=width, window=window)
     if B == 0:
         return torch.zeros((0,), dtype=torch.int32, device=dev)
     out = level_rows_cuda(csrc, cstart, clen, flat, starts, lens, own, extra,
                           neg, dirs=dirs, width=width, window=window)
-    launches["count" if neg is None else "signed"] += 1
+    launches[mode] += 1
     return out
 
 
@@ -343,19 +396,26 @@ def level_expand_compact(
     P, B, dev, dirs, extra = validate_level_expand_compact(
         csrc, cstart, clen, flat, starts, lens, own, extra, rows, offset,
         parent, newcol, dirs=dirs, width=width)
+    route = _k1_route(dev)
     _check_own(own, P, B)
-
-    if _route(dev) == "plain":
-        level_expand_compact_ref(csrc, cstart, clen, flat, starts, lens, own,
-                                 extra, rows, offset, parent, newcol,
-                                 dirs=dirs, width=width, window=window)
-        return
-    if B == 0:
-        return
-    level_compact_cuda(csrc, cstart, clen, flat, starts, lens, own, extra,
-                       rows, offset, parent, newcol, dirs=dirs, width=width,
-                       window=window)
-    launches["mask"] += 1
+    walk = _walk(B)
+    off0 = int(offset) if walk is not None else 0
+    if route == "plain":
+        with _quiet(walk):
+            level_expand_compact_ref(csrc, cstart, clen, flat, starts, lens,
+                                     own, extra, rows, offset, parent, newcol,
+                                     dirs=dirs, width=width, window=window)
+    elif B:
+        level_compact_cuda(csrc, cstart, clen, flat, starts, lens, own, extra,
+                           rows, offset, parent, newcol, dirs=dirs,
+                           width=width, window=window)
+        launches["mask"] += 1
+    if walk is not None:
+        # pairs written below the capacity C (the rest are dropped)
+        total, C = int(offset) - off0, parent.shape[0] - 1
+        _report(walk, "mask", (B,), rows_bound_of, csrc, cstart, clen, flat,
+                starts, lens, own, extra, None, dirs=dirs, width=width,
+                window=window, written=max(min(total, C - off0), 0))
 
 
 def validate_level_expand_compact(csrc, cstart, clen, flat, starts, lens,
@@ -426,10 +486,23 @@ def _stacked_rows(cand, nbr, cand_valid, nbr_len, blocks):
 
 def _membership(cand, nbr, cand_valid, nbr_len, blocks, *, count: bool):
     dev = cand.device if isinstance(cand, torch.Tensor) else None
-    if dev is not None and _route(dev) == "plain":
-        cand, nbr = _stacked_rows(cand, nbr, cand_valid, nbr_len, blocks)
-        return (intersect_count_plain(cand, nbr) if count
-                else membership_ref_searchsorted(cand, nbr))
+    route = _route(dev) if dev is not None else "kernel"
+    key = "intersect_count" if count else "membership"
+    ragged = cand_valid is not None or nbr_len is not None
+    if route in ("plain", "meta"):
+        _membership_inputs(cand, nbr, cand_valid, nbr_len, blocks)
+        (B, D), L = cand.shape, nbr.shape[1]
+        walk = _walk(B * D * L)
+        _report(walk, key, (B, D), membership_bound, B, D, L, count,
+                ragged=ragged)
+        if route == "meta":
+            return torch.empty((B,) if count else (B, D),
+                               dtype=torch.int32 if count else torch.bool,
+                               device=dev)
+        with _quiet(walk):
+            cand, nbr = _stacked_rows(cand, nbr, cand_valid, nbr_len, blocks)
+            return (intersect_count_plain(cand, nbr) if count
+                    else membership_ref_searchsorted(cand, nbr))
     cand, nbr = _membership_inputs(cand, nbr, cand_valid, nbr_len, blocks)
     B, D = cand.shape
     L = nbr.shape[1]
@@ -442,7 +515,9 @@ def _membership(cand, nbr, cand_valid, nbr_len, blocks, *, count: bool):
         nbr_len = nbr_len.to(torch.int64).clamp(0, L).to(torch.int32)
     out = _k23.membership_cuda(cand.contiguous(), nbr.contiguous(), nbr_len,
                                cand_valid, count=count)
-    launches["intersect_count" if count else "membership"] += 1
+    launches[key] += 1
+    _report(_walk(1), key, (B, D), membership_bound, B, D, L, count,
+            ragged=ragged)
     return out
 
 
@@ -516,8 +591,14 @@ def flash_attention_rows(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"{name} on {t.device}, q on {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if _route(q.device) == "plain":
-        return flash_attention_ref(q, k, v, causal=causal)
+    route, walk = _route(q.device), _walk(1)
+    _report(walk, "flash", (BH, Sq, hd), k4_bound, (BH, BK, Sq, Sk, hd),
+            causal, elem=q.element_size())
+    if route == "meta":
+        return torch.empty_like(q)
+    if route == "plain":
+        with _quiet(walk):
+            return flash_attention_ref(q, k, v, causal=causal)
     out = _k4.flash_attention_cuda(q, k, v, causal=causal)
     launches["flash"] += 1
     return out

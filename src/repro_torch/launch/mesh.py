@@ -19,7 +19,9 @@ Tensor-parallel serving lays the ranks out on a data × model grid
 (`make_grid`, the counterpart of `make_host_mesh`): rank r sits at data
 index r // M and model index r % M, and the grid carries the process
 groups of its model axis (the M ranks of one data index) and its data
-axis.
+axis.  `make_production_grid` is the counterpart of
+`make_production_mesh` (the dry-run's 16 x 16 and 2 x 16 x 16 grids),
+and `HW` holds the card's rates the roofline divides by.
 
 Functions only: importing this module initializes no group.
 """
@@ -151,6 +153,30 @@ def make_grid(group=None, *, model: int = 1):
             data_group = g
     return Grid(("data", "model"), (rows, model), rank=rank,
                 model_group=model_group, data_group=data_group)
+
+
+def make_production_grid(*, multi_pod: bool = False):
+    """The production grids, for specs alone (no devices, no group):
+    (16, 16) over ("data", "model") for one pod, (2, 16, 16) over
+    ("pod", "data", "model") for two; the counterpart of the
+    reference's `make_production_mesh`."""
+    from ..parallel.sharding import grid
+
+    if multi_pod:
+        return grid((2, 16, 16), ("pod", "data", "model"))
+    return grid((16, 16), ("data", "model"))
+
+
+# One NVIDIA H100 80GB HBM3 (SXM, 700 W): NVIDIA's data sheet, dense
+# rates without sparsity.  Published peaks, not measurements; a card set
+# below 700 W runs below them.  The counterpart of the reference's `HW`.
+HW = {
+    "peak_flops_bf16": 989e12,     # FLOP/s, tensor cores
+    "peak_flops_fp32": 67e12,      # FLOP/s outside the tensor cores
+    "hbm_bw": 3.35e12,             # B/s
+    "link_bw": 450e9,              # B/s, NVLink, one way
+    "hbm_bytes": 80e9,
+}
 
 
 _GRIDS: dict = {}

@@ -412,10 +412,14 @@ def _attention_decode_seq(p, x, cache_k, cache_v, pos, cfg, dtype,
     q, k, v, posv = _decode_qkv(p, x, pos, cfg, dtype, positions3)
     Hl = q.shape[2]
     at = posv[:, 0].clamp(0, S * ctx.model - 1) - off
-    own = (at >= 0) & (at < S)
-    rows = torch.arange(B, device=x.device)[own]
-    cache_k[rows, at[own]] = k[own, 0].to(cache_k.dtype)
-    cache_v[rows, at[own]] = v[own, 0].to(cache_v.dtype)
+    own = ((at >= 0) & (at < S))[:, None, None]
+    # every row writes its slot, a row this rank does not own its slot's
+    # own value back: no row count read from the data (`meta` tensors)
+    rows, at = torch.arange(B, device=x.device), at.clamp(0, S - 1)
+    cache_k[rows, at] = torch.where(own, k[:, 0].to(cache_k.dtype),
+                                    cache_k[rows, at])
+    cache_v[rows, at] = torch.where(own, v[:, 0].to(cache_v.dtype),
+                                    cache_v[rows, at])
     q = tp.all_gather(q, dim=2)                       # [B, 1, H, hd]
     H, K = q.shape[2], cache_k.shape[2]
     qh = q.reshape(B, 1, K, H // K, hd)

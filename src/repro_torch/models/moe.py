@@ -117,6 +117,14 @@ def capacity(N: int, cfg) -> int:
     return max(1, int((N * cfg.top_k) / cfg.n_experts * cfg.capacity_factor))
 
 
+def _counts(ids: torch.Tensor, n: int) -> torch.Tensor:
+    """How often each of 0..n-1 occurs in the int64 `ids`: int64 [n], as
+    `torch.bincount(ids, minlength=n)` gives them, through a scatter-add
+    that also runs on `meta` tensors (bincount has no meta kernel)."""
+    return torch.zeros(n, dtype=ids.dtype, device=ids.device).scatter_add_(
+        0, ids, torch.ones_like(ids))
+
+
 def dispatch(idx: torch.Tensor, cfg):
     """The sorted dispatch of `moe_sorted` for experts idx [N, k]:
     (order, token, keep, slot, C).  Pairs (flattened token-major, [N*k])
@@ -129,7 +137,7 @@ def dispatch(idx: torch.Tensor, cfg):
     C = capacity(N, cfg)
     se, order = torch.sort(idx.reshape(-1), stable=True)
     token = torch.arange(N, device=idx.device).repeat_interleave(k)[order]
-    counts = torch.bincount(se, minlength=E)
+    counts = _counts(se, E)
     starts = torch.cumsum(counts, 0) - counts
     rank = torch.arange(N * k, device=idx.device) - starts[se]
     keep = rank < C
@@ -171,7 +179,7 @@ def moe_sorted(p: Params, x: torch.Tensor, cfg, dtype):
     # buckets (into the spare expert El) and write the spare row
     se, order = torch.sort(torch.where(mine, flat - lo, El), stable=True)
     token = torch.arange(N, device=x.device).repeat_interleave(k)[order]
-    counts = torch.bincount(se, minlength=El + 1)
+    counts = _counts(se, El + 1)
     rank = torch.arange(N * k, device=x.device) - (torch.cumsum(counts, 0)
                                                    - counts)[se]
     keep = se < El

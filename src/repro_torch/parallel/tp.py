@@ -8,7 +8,8 @@ GSPMD inserts the collectives, forward and backward; here a step opens
 here.
 
 Collectives take the model or the data axis's process group from the
-grid.  NCCL reduces tensors where they lie.  Gloo (ranks sharing a
+grid.  NCCL (and any backend but gloo: the dry-run's `fake` group on
+`meta` tensors) reduces tensors where they lie.  Gloo (ranks sharing a
 card, or on the CPU) gets an fp32 host copy of floating tensors: it
 stages CUDA tensors through the host anyway, it refuses some ops on
 CUDA tensors (all_gather) and bf16 on some builds, and summing bf16
@@ -111,8 +112,9 @@ def _count(kind: str, x: torch.Tensor) -> None:
 
 
 def _staged(x: torch.Tensor, group):
-    """(tensor to hand the backend, how to bring the result back)."""
-    if dist.get_backend(group) == "nccl":
+    """(tensor to hand the backend, how to bring the result back): a
+    host copy under gloo, the tensor itself under any other backend."""
+    if dist.get_backend(group) != "gloo":
         return x.contiguous(), lambda y: y
     dtype, device = x.dtype, x.device
     y = x.detach().to("cpu", torch.float32 if x.is_floating_point()
@@ -146,9 +148,9 @@ def _block(x: torch.Tensor, group, dim: int) -> torch.Tensor:
 
 def _reduce_scatter(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     """`x` summed over the group, this rank's block along `dim`.  NCCL
-    reduce-scatters; gloo has no reduce-scatter, so it all_reduces and
-    keeps the block."""
-    if dist.get_backend(group) != "nccl":
+    (and any backend but gloo) reduce-scatters; gloo has no
+    reduce-scatter, so it all_reduces and keeps the block."""
+    if dist.get_backend(group) == "gloo":
         return _block(_reduce(x, group, dist.ReduceOp.SUM, "reduce_scatter"),
                       group, dim)
     _count("reduce_scatter", x)

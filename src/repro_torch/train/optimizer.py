@@ -84,11 +84,13 @@ def global_norm(tree, *, pieces=None, grid=None) -> torch.Tensor:
 
 
 def _summed(x: torch.Tensor, group) -> torch.Tensor:
-    """A scalar summed over `group` (through the host under gloo)."""
+    """A scalar summed over `group` (through the host under gloo; in
+    place under any other backend, the dry-run's `fake` group on `meta`
+    tensors too)."""
     import torch.distributed as dist
 
     y = x.detach().reshape(1).to(
-        x.device if dist.get_backend(group) == "nccl" else "cpu",
+        "cpu" if dist.get_backend(group) == "gloo" else x.device,
         torch.float32, copy=True)
     dist.all_reduce(y, group=group)
     return y[0].to(x.device)

@@ -242,5 +242,6 @@ def test_resolve_device_refuses_cuda_without_card(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         resolve_device()
     assert resolve_device("cpu") == torch.device("cpu")
+    assert resolve_device("meta") == torch.device("meta")   # named only
     with pytest.raises(ValueError):
-        resolve_device("meta")
+        resolve_device("mps")

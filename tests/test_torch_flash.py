@@ -135,5 +135,6 @@ def test_wrapper_rejects_bad_inputs(bad):
 def test_route_refuses_other_devices():
     assert ops._route(torch.device("cpu")) == "plain"
     assert ops._route(torch.device("cuda", 0)) == "kernel"
+    assert ops._route(torch.device("meta")) == "meta"
     with pytest.raises(ValueError):
-        ops._route(torch.device("meta"))
+        ops._route(torch.device("mps"))
