@@ -67,7 +67,9 @@ run outside a checkout of this repository.  Phases, one line each:
     bidirectional hd 64, jamba G = 4 and qwen2-vl G = 8, hd 128), then
     each rank's shapes under tensor parallelism (`TP_K4`: qwen2-vl G =
     8, jamba G = 4, granite-34b 24 over 1, whisper hd 64 at a model
-    axis of 2, qwen2-vl 16 over 2 at 4);
+    axis of 2, qwen2-vl 16 over 2 at 4), then minitron-4b's G = 3
+    (`WHOLE_K4`: 24 query heads over 8 KV heads, hd 128, one 2,048-token
+    sequence, and phase 22's rank shape, 2 rows of 1,024);
     each case launches the kernel the source's rule names (bf16: wgmma,
     fp32: scalar) and each bf16 case twice, bit-equal;
  8. qwen3-1.7b at full width and depth (random weights from seed 0)
@@ -86,7 +88,8 @@ run outside a checkout of this repository.  Phases, one line each:
     the plain version and PyTorch's `scaled_dot_product_attention` (the
     library yardstick; the port never calls it), with TFLOP/s and the
     share of the card's bound; then the same (no scalar kernel) at each
-    of the other families' shapes (`FAMILY_K4`).
+    of the other families' shapes (`FAMILY_K4`) and at minitron-4b's
+    G = 3 (`WHOLE_K4`).
 
 10. K2 and K3 (`csrc/membership.cu`: the padded kernel behind
     `ops.sorted_membership` / `ops.intersect_count`, which reads the
@@ -249,12 +252,33 @@ run outside a checkout of this repository.  Phases, one line each:
     kernel calls the walk recorded and its count and `max_needed` equal
     to a count of the same stripe on one device; then qwen3-1.7b
     train_4k, granite-moe-1b-a400m prefill_32k (MoE and K4),
-    jamba-v0.1-52b long_500k on the one-pod grid and qwen2-vl-72b
-    train_4k on the two-pod grid, each one rank's step on meta tensors
-    under a fake process group of 256 / 512 ranks: no launch, K4
-    recorded once per flash-eligible call of a prefill (24).  Each
-    cell's roofline terms print on a line of their own; the phase must
-    take less than 90 s.
+    jamba-v0.1-52b long_500k on the one-pod grid, qwen2-vl-72b
+    train_4k on the two-pod grid, whisper-base prefill_32k on the
+    one-pod grid ('dp_replicated') and minitron-4b train_4k on the
+    two-pod grid ('tp2d', its 24 heads whole over the model axis of
+    16), each one rank's step on meta tensors under a fake process
+    group of 256 / 512 ranks: no launch, K4 recorded once per
+    flash-eligible call of a prefill (24; 18).  Each cell's roofline
+    terms print on a line of their own; the phase must take less than
+    90 s.
+22. attention whole on every model rank (`WHOLE_RUNS`, each rank in
+    `whole_child`, one torchrun of ranks sharing the card under gloo
+    per run, bf16, seed 0): whisper-base whole at `--model-axis 3` on 3
+    ranks ('dp_replicated': the whole model and 2 rows of a batch of 6
+    a rank; a 2,048-token prompt, 16 tokens, then 2 train steps of 6 x
+    1,024) and minitron-4b at full width cut to 2 layers at
+    `--model-axis 16` on 16 ranks ('tp2d' with its 24 heads whole on
+    every rank; a batch of 2, a 1,024-token prompt, 4 tokens, a cache
+    whose sequence splits over the ranks, then one train step of 2 x
+    512); every rank launches K4 18 / 2 times a prefill, all wgmma,
+    none in decode or training, and takes the same tokens; the prefill
+    logits lie within phase 8's limits of the one-device kernel path's
+    (made in this process first), the first tokens agree wherever the
+    one-device top-2 gap exceeds that distance, the first train step
+    lies within phase 18's limits of one device's, every rank's step
+    metrics are equal; per rank its rows, prefill s, decode ms/step,
+    peak memory and the prefill's and a step's collectives by kind;
+    the phase must take less than 150 s.
 
 Every count of phases 3–4 sets K1's launch counters to 0 just before it
 and reads them just after; a kernel-path count must launch exactly the
@@ -280,7 +304,9 @@ K4 counters, around its served prefill and decode calls, its
 flash-eligible calls per prefill and none in decode; in phase 20 each
 rank's K4 counters, around each train step, none; in phase 21 K1's,
 around the graph cell, equal to the walk's kernel calls, and none
-around each LM cell on meta.
+around each LM cell on meta; in phase 22 each rank's K4 counters,
+around its served prefill and decode calls and each train step, its
+flash-eligible calls per prefill and none otherwise.
 
 Counts are integers and every comparison of phases 2–6 and 10–16 is
 exact (no tolerance).  The last two lines are the kernels record (K1's
@@ -297,7 +323,9 @@ runs; `gateway_sharded_launches`: the same in phase 16's gateway; K4's
 rank per prefill in phase 19, by arch, and `tp_train_launches`: its
 launches per rank per step in phase 20, by run; K1's `dryrun_launches`:
 its launches per mode in phase 21's graph cell; K4's
-`dryrun_meta_calls`: its calls on meta per LM cell of phase 21) and
+`dryrun_meta_calls`: its calls on meta per LM cell of phase 21, and
+`whole_launches`: its launches per rank per prefill in phase 22, by
+run) and
 the device record (JSON).
 """
 from __future__ import annotations
@@ -1280,6 +1308,14 @@ TP_K4 = [((128, 16, 2048, 2048, 128), True), ((64, 16, 2048, 2048, 128), True),
          ((96, 4, 2048, 2048, 128), True), ((16, 16, 2048, 2048, 64), True),
          ((16, 16, 2048, 2048, 64), False), ((64, 8, 2048, 2048, 128), True)]
 WGMMA_CASES += TP_K4
+# Attention whole on every model rank (phase 22): minitron-4b's 24 query
+# heads over 8 KV heads (G = 3, hd 128), one 2,048-token sequence (phase
+# 9 times it), and each rank's shape in phase 22 (2 rows of 1,024); and
+# whisper-base's 2 rows a rank of phase 22's batch of 6 at 'dp_replicated'
+# (8 over 8, hd 64: TP_K4's shape at 2 x 8 heads).
+WHOLE_K4 = [("minitron-4b", (24, 8, 2048, 2048, 128), True, 32)]
+WGMMA_CASES += [(shape, causal) for _, shape, causal, _ in WHOLE_K4]
+WGMMA_CASES += [((48, 16, 1024, 1024, 128), True)]
 # The reference's own tolerances (tests/test_flash_kernel.py:39).
 FLASH_ATOL = {"bfloat16": 3e-2, "float32": 2e-5}
 
@@ -1890,7 +1926,8 @@ def time_k4(card, errs) -> dict:
     check(old_err <= FLASH_ATOL["bfloat16"],
           f"scalar K4 max_abs_err {old_err:.3e}")
     families = []
-    for i, (arch, shape, causal, per_prefill) in enumerate(FAMILY_K4):
+    for i, (arch, shape, causal, per_prefill) in enumerate(FAMILY_K4
+                                                           + WHOLE_K4):
         _, frec = time_k4_case(shape, causal, 70 + i)
         errs.append(frec["max_abs_err"])
         check(frec["max_abs_err"] <= FLASH_ATOL["bfloat16"],
@@ -4065,10 +4102,11 @@ def tp_child(argv) -> int:
     return 0
 
 
-def one_device_logits(arch, layers, device):
+def one_device_logits(arch, layers, device, rows=4, prompt=None):
     """The one-device kernel-path prefill logits of `arch` cut to
     `layers` (weights from seed 0 cast layer by layer, `fake_prompts`
-    of seed 0), beside the plain path's noise floor (plain against
+    of seed 0: `rows` rows of `prompt` tokens, default TP_PROMPT),
+    beside the plain path's noise floor (plain against
     `fp32_attention`, max and mean): what phase 17 keeps for its runs."""
     import gc
 
@@ -4084,7 +4122,8 @@ def one_device_logits(arch, layers, device):
     if layers:
         cfg = cfg.scaled(n_layers=layers)
     params = T.init(cfg, 0, device, cast=cast_params_for_serving)
-    batch = fake_prompts(cfg, 4, TP_PROMPT, seed=0, device=device)
+    batch = fake_prompts(cfg, rows, prompt or TP_PROMPT, seed=0,
+                         device=device)
     kernel = make_prefill(cfg, device, q_chunk=0)(params, batch)[0]
     plain = make_prefill(cfg, device, q_chunk=0, flash=False)
     pl = plain(params, batch)[0]
@@ -4098,17 +4137,17 @@ def one_device_logits(arch, layers, device):
     return out
 
 
-def tp_start(world, argv):
+def tp_start(world, argv, env=None):
     """Start one torchrun of `world` ranks on the card, in a session of
-    its own, its output into an anonymous file; returns (process,
-    file)."""
+    its own (its environment this process's with `env` over it), its
+    output into an anonymous file; returns (process, file)."""
     import subprocess
     import tempfile
 
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            "--nproc-per-node", str(world), *argv]
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
-               OMP_NUM_THREADS="1")
+               OMP_NUM_THREADS="1", **(env or {}))
     out = tempfile.TemporaryFile("w+")
     proc = subprocess.Popen(cmd, cwd=ROOT, env=env, text=True, stdout=out,
                             stderr=subprocess.STDOUT, start_new_session=True)
@@ -4134,6 +4173,10 @@ def tp_collect(what, started, timeout=TP_TIMEOUT_S, phase="phase 19"):
     out = f.read()
     f.close()
     if proc.returncode != 0:
+        # the ranks' own tracebacks, then the end (torchrun's summary of
+        # many ranks alone outgrows it)
+        log("\n".join([ln for ln in out.splitlines()
+                       if ln.startswith("[rank")][-80:]))
         log(out[-6000:])
     for ln in out.splitlines():
         if ln.startswith(("[serve] rank", "[serve] grid", "[group]",
@@ -4142,10 +4185,11 @@ def tp_collect(what, started, timeout=TP_TIMEOUT_S, phase="phase 19"):
     return proc.returncode, out
 
 
-def tp_launch(what, world, argv, timeout=TP_TIMEOUT_S, phase="phase 19"):
+def tp_launch(what, world, argv, timeout=TP_TIMEOUT_S, phase="phase 19",
+              env=None):
     """One torchrun of `world` ranks on the card (`tp_start`, then
     `tp_collect`); returns (exit code, output)."""
-    return tp_collect(what, tp_start(world, argv), timeout, phase)
+    return tp_collect(what, tp_start(world, argv, env), timeout, phase)
 
 
 def tp_whole_run(card) -> list:
@@ -4547,11 +4591,15 @@ def tp_train_phase(card) -> dict:
 # the card, then LM cells on `meta` tensors on the production grids (a
 # fake process group of 256 or 512 ranks): a dense train step, a prefill
 # with MoE and K4, a long-context hybrid decode, a train step on the
-# two-pod grid.
+# two-pod grid, whisper-base's prefill under 'dp_replicated' (K4 on every
+# head, 18 calls) and minitron-4b's train step under 'tp2d' with its 24
+# heads whole over a model axis of 16.
 DRYRUN_CELLS = [("qwen3-1.7b", "train_4k", "single"),
                 ("granite-moe-1b-a400m", "prefill_32k", "single"),
                 ("jamba-v0.1-52b", "long_500k", "single"),
-                ("qwen2-vl-72b", "train_4k", "multi")]
+                ("qwen2-vl-72b", "train_4k", "multi"),
+                ("whisper-base", "prefill_32k", "single"),
+                ("minitron-4b", "train_4k", "multi")]
 DRYRUN_LIMIT_S = 90.0
 DRYRUN_TERMS = ("flops_per_device", "bytes_per_device",
                 "coll_bytes_per_device", "coll_breakdown", "model_flops",
@@ -4627,6 +4675,382 @@ def dryrun_phase(card) -> dict:
     check(dt < DRYRUN_LIMIT_S, f"phase 21 took {dt:.1f}s (limit "
                                f"{DRYRUN_LIMIT_S:g}s)")
     return out
+
+
+# ------------------------------------------------------------ phase 22 --
+# Attention whole on every model rank, through `launch.serve --model-axis`
+# and `launch.train --model-axis` in one torchrun per run of ranks sharing
+# the card (gloo; NCCL refuses two ranks on one device), random weights
+# from seed 0, bf16; each rank serves, then trains, in the launch's group
+# (`whole_child`):
+#  * whisper-base whole at a model axis of 3 on 3 ranks: `pick_layout`
+#    gives 'dp_replicated' (its 8 heads do not divide 3, its state fits):
+#    every rank holds the whole model and 2 rows of a batch of 6; served
+#    with a 2,048-token prompt and 16 tokens (18 K4 launches a rank a
+#    prefill, on every head; none in decode), then 2 train steps of
+#    6 x 1,024;
+#  * minitron-4b at full width cut to 2 of its 32 layers at a model axis
+#    of 16 on 16 ranks: 'tp2d' (its state does not fit), its 24 heads
+#    whole on every rank, the MLP and the 256,000-row vocabulary split 16
+#    ways; served with a batch of 2, a 1,024-token prompt and 4 tokens
+#    in a cache of 1,040 positions, whose sequence splits over the 16
+#    ranks (its 8 KV heads do not divide 16: flash-decoding with all 24
+#    query heads on every rank) (2 K4 launches a rank a prefill, G = 3),
+#    then one train step of 2 x 512 (this process's one-device reference
+#    step holds 29 GB of masters, gradients and moments beside the
+#    [2, S, 256,000] fp32 logits and their gradient; at S = 1,024 it
+#    left the card little room).  16 is the smallest axis
+#    that divides its 3,072 / 9,216 / 256,000 but not its 24 heads.
+#    The 16 ranks draw their weights WHOLE_INIT_AT_ONCE at a time
+#    (`staggered_init`): each draws the whole fp32 embedding (3.1 GB)
+#    before it keeps its 1/16, and 16 at once would not fit the card.
+#    The ranks run with the caching
+#    allocator's expandable segments (`WHOLE_ENV`): with fixed segments
+#    a rank's shards sit in the segments its whole parts were drawn in,
+#    which empty_cache cannot return, and 16 such ranks do not fit.
+# Each run's prefill logits lie within phase 8's limits of the one-device
+# kernel path's on the same weights and prompts (made in this process
+# before the launch), the first tokens agree wherever the one-device
+# top-2 gap exceeds that distance, the ranks take the same tokens, and
+# the first train step lies within phase 18's limits (TRAIN_LOSS_ATOL /
+# TRAIN_GNORM_ATOL) of this process's one-device first step; every rank's
+# step metrics are equal and finite, with no K4 launch in training.
+WHOLE_RUNS = {
+    "whisper-base": dict(
+        world=3, layout="dp_replicated", k4=18,
+        serve=["--arch", "whisper-base", "--batch", "6", "--prompt-len",
+               "2048", "--gen", "16", "--model-axis", "3"],
+        train=["--arch", "whisper-base", "--batch", "6", "--seq", "1024",
+               "--steps", "2", "--model-axis", "3", "--log-every", "1"]),
+    "minitron-4b": dict(
+        world=16, layout="tp2d", k4=2,
+        serve=["--arch", "minitron-4b", "--layers", "2", "--batch", "2",
+               "--prompt-len", "1024", "--gen", "4", "--max-seq", "1040",
+               "--model-axis", "16"],
+        train=["--arch", "minitron-4b", "--layers", "2", "--batch", "2",
+               "--seq", "512", "--steps", "1", "--model-axis", "16",
+               "--log-every", "1"]),
+}
+WHOLE_INIT_AT_ONCE = 4
+WHOLE_ENV = {"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}
+WHOLE_TIMEOUT_S = 300
+WHOLE_LIMIT_S = 150.0
+
+
+def _flag(argv, name, default=None):
+    return argv[argv.index(name) + 1] if name in argv else default
+
+
+def _without(argv, *names):
+    """`argv` less each flag of `names` and its value."""
+    out, skip = [], False
+    for a in argv:
+        if skip:
+            skip = False
+        elif a in names:
+            skip = True
+        else:
+            out.append(a)
+    return out
+
+
+@contextlib.contextmanager
+def staggered_init(group, at_once):
+    """`transformer.init` taken by `at_once` ranks of `group` at a time
+    while open (a barrier after each turn; every rank makes the same
+    calls), each rank handing its freed blocks back to the card after
+    its turn (the caching allocator would keep the whole parts it drew
+    reserved)."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.models import transformer as T
+
+    init, rank, world = T.init, group.rank(), group.size()
+
+    def turns(*a, **kw):
+        out = None
+        for first in range(0, world, at_once):
+            if first <= rank < first + at_once:
+                out = init(*a, **kw)
+                gc.collect()
+                if torch.cuda.is_initialized():
+                    torch.cuda.empty_cache()
+            dist.barrier(group)
+        return out
+
+    T.init = turns
+    try:
+        yield
+    finally:
+        T.init = init
+
+
+def whole_child(argv) -> int:
+    """A rank of a phase 22 launch (`chip_smoke.py --whole-child --out
+    F`, under torchrun): the serve argv of F.json through
+    `launch.serve.main`'s body, K4's launches per phase recorded
+    (`PhaseLaunches`), one more prefill of the served weights and
+    prompts (rank 0 saves its logits to F.pt), then the train argv of
+    F.json through `launch.train.main`'s body (`TrainSteps`); each rank
+    writes its records to F.rank<r>.json."""
+    import argparse
+    import gc
+
+    import torch
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--out", required=True)
+    args = ap.parse_args(argv)
+    with open(f"{args.out}.json") as f:
+        run = json.load(f)
+    sv, tr = run["serve"], run["train"]
+    import torch._dynamo  # noqa: F401  (before the group: launch.train's note)
+
+    from repro_torch.launch import mesh, serve, train
+    from repro_torch.serve.serve_step import make_prefill
+    from repro_torch.serve.session import fake_prompts
+
+    group, device = mesh.shared_group(_flag(sv, "--device"))
+    rank, cuda = group.rank(), device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    with staggered_init(group, WHOLE_INIT_AT_ONCE), PhaseLaunches() as rec:
+        rc = serve.main.__wrapped__(sv)
+    session = rec.sessions[0]
+    m = session.metrics()
+    peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else 0.0
+    batch = fake_prompts(session.cfg, int(_flag(sv, "--batch")),
+                         int(_flag(sv, "--prompt-len")), seed=0,
+                         device=device)
+    prefill = make_prefill(session.cfg, device, q_chunk=0, grid=session.grid)
+    t0 = time.perf_counter()
+    logits, _ = prefill(session._params, batch)
+    if cuda:
+        torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    if rank == 0:
+        torch.save(logits.float().cpu(), f"{args.out}.pt")
+    record = {
+        "rc": rc, "phases": rec.records, "variants": rec.variants,
+        "prefill_s": m["prefill_seconds"], "warm_prefill_s": warm,
+        "decode_ms": m["ms_per_step"], "peak_gib": peak,
+        "tokens": session.tokens_out()[:, 0].tolist(),
+        "layout": session.layout, "rows": list(session._rows),
+        "collectives": session.prefill_collectives,
+        "split": [session.grid.data, session.grid.model]}
+    del session, rec, prefill, logits, batch
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with staggered_init(group, WHOLE_INIT_AT_ONCE), TrainSteps() as steps:
+        record["train_rc"] = train.main.__wrapped__(tr)
+    record["train_wall_s"] = time.perf_counter() - t0
+    record["train_peak_gib"] = (torch.cuda.max_memory_allocated() / 2**30
+                                if cuda else 0.0)
+    record["steps"] = steps.steps
+    steps.last = None
+    del steps
+    with open(f"{args.out}.rank{rank}.json", "w") as f:
+        json.dump(record, f)
+    del group
+    mesh.close_group()
+    return 0
+
+
+def whole_argvs(name) -> tuple[list, list]:
+    """(serve argv, train argv) of `WHOLE_RUNS[name]` on DEVICE."""
+    run = WHOLE_RUNS[name]
+    return (run["serve"] + ["--device", DEVICE],
+            run["train"] + ["--device", DEVICE])
+
+
+def whole_references(name) -> dict:
+    """This process's one-device references of `WHOLE_RUNS[name]`: the
+    kernel-path prefill logits and the plain path's noise floor on the
+    served weights and prompts (`one_device_logits`), and the first
+    train step (loss, grad norm) on the trained batch."""
+    import gc
+
+    import torch
+
+    from repro_torch.launch import train
+
+    sv, tr = whole_argvs(name)
+    logits, f_max, f_mean = one_device_logits(
+        _flag(sv, "--arch"), int(_flag(sv, "--layers", 0)), DEVICE,
+        rows=int(_flag(sv, "--batch")),
+        prompt=int(_flag(sv, "--prompt-len")))
+    argv = _without(tr, "--model-axis", "--steps") + ["--steps", "1"]
+    with TrainSteps() as rec, contextlib.redirect_stdout(None):
+        rc = train.main(argv)
+    check(rc == 0 and len(rec.steps) == 1,
+          f"phase 22: {name}: the one-device train step exited {rc} after "
+          f"{len(rec.steps)} step(s)")
+    first = (rec.steps[0]["loss"], rec.steps[0]["grad_norm"])
+    rec.last = None
+    del rec
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"logits": logits, "floor": (f_max, f_mean), "first": first}
+
+
+def whole_run(card, name, ref, out_dir) -> list:
+    """One phase 22 launch (`whole_child` on `WHOLE_RUNS[name]`'s world)
+    checked against this process's one-device `ref`; returns K4's
+    launches per rank per prefill."""
+    import statistics
+
+    import torch
+
+    run = WHOLE_RUNS[name]
+    world, want = run["world"], run["k4"]
+    sv, tr = whole_argvs(name)
+    base = os.path.join(out_dir, name)
+    with open(f"{base}.json", "w") as f:
+        json.dump({"serve": sv, "train": tr}, f)
+    t0 = time.perf_counter()
+    rc, out = tp_launch(f"{name}, {world} ranks, one card", world,
+                        [os.path.abspath(__file__), "--whole-child",
+                         "--out", base], timeout=WHOLE_TIMEOUT_S,
+                        phase="phase 22", env=WHOLE_ENV)
+    wall = time.perf_counter() - t0
+    check(rc == 0, f"phase 22: {name}: torchrun exited {rc}")
+    check(f"[group] world={world} backend=gloo" in out,
+          f"phase 22: {name}: the ranks sharing the card are not on gloo")
+    recs = []
+    for r in range(world):
+        with open(f"{base}.rank{r}.json") as f:
+            recs.append(json.load(f))
+    B = int(_flag(sv, "--batch"))
+    for r, rec in enumerate(recs):
+        phases = [tuple(p) for p in rec["phases"]]
+        check(rec["rc"] == 0 and rec["train_rc"] == 0,
+              f"phase 22: {name} rank {r}: serve / train exited "
+              f"{rec['rc']} / {rec['train_rc']}")
+        check(rec["layout"] == run["layout"],
+              f"phase 22: {name} rank {r}: layout {rec['layout']}, want "
+              f"{run['layout']}")
+        check(phases == [("prefill", want), ("decode", 0)],
+              f"phase 22: {name} rank {r}: K4 launches {phases}, want "
+              f"{want} in the prefill and none in decode")
+        check(rec["variants"] == [{"scalar": 0, "wgmma": n}
+                                  for _, n in phases],
+              f"phase 22: {name} rank {r}: K4 kernels {rec['variants']}")
+        check(rec["tokens"] == recs[0]["tokens"],
+              f"phase 22: {name}: ranks took other tokens "
+              f"{[x['tokens'] for x in recs]}")
+        for j, st in enumerate(rec["steps"]):
+            check(all(map(math.isfinite, (st["loss"], st["grad_norm"]))),
+                  f"phase 22: {name} rank {r} step {j + 1} not finite")
+            check(st["launches"]["flash"] == 0,
+                  f"phase 22: {name} rank {r} step {j + 1} launched K4")
+            check((st["loss"], st["grad_norm"]) ==
+                  (recs[0]["steps"][j]["loss"],
+                   recs[0]["steps"][j]["grad_norm"]),
+                  f"phase 22: {name}: the ranks' step {j + 1} metrics "
+                  f"differ")
+        check(len(rec["steps"]) == int(_flag(tr, "--steps")),
+              f"phase 22: {name} rank {r}: {len(rec['steps'])} steps")
+    rows = [tuple(x["rows"]) for x in recs]
+    if run["layout"] == "dp_replicated":
+        n = B // world
+        check(rows == [(r * n, n) for r in range(world)],
+              f"phase 22: {name}: rows {rows}, want {n} a rank over all "
+              f"{world}")
+    tp = torch.load(f"{base}.pt")
+    kl = ref["logits"]
+    f_max, f_mean = ref["floor"]
+    check(tp.shape == kl.shape and bool(torch.isfinite(tp).all()),
+          f"phase 22: {name}: logits {tuple(tp.shape)} vs "
+          f"{tuple(kl.shape)}, or not finite")
+    d = (tp - kl.float()).abs()
+    d_max, d_mean = float(d.max()), float(d.mean())
+    top = kl.float().topk(2, dim=-1).values
+    gap = (top[:, 0] - top[:, 1]).tolist()
+    t_tok, o_tok = tp.argmax(-1).tolist(), kl.argmax(-1).tolist()
+    served = recs[0]["tokens"]
+    per_rank = "; ".join(
+        f"rank {r} rows {x['rows']} prefill {x['prefill_s']:.4f} s (warm "
+        f"{x['warm_prefill_s']:.4f} s), decode {x['decode_ms']:.3f} "
+        f"ms/step, peak {x['peak_gib']:.2f} GiB, prefill collectives "
+        + " ".join(f"{k}={v}" for k, v in x["collectives"].items() if v)
+        for r, x in enumerate(recs))
+    log(f"phase 22: {name} ({_flag(sv, '--layers', 'all')} layers) at "
+        f"data x model = {recs[0]['split']}, layout {recs[0]['layout']}: "
+        f"{per_rank}; vs one-device logits max_abs={d_max:.4f} "
+        f"mean_abs={d_mean:.5f} (limits {PREFILL_MAX_ABS} / "
+        f"{PREFILL_MEAN_ABS}; one-device plain vs fp32 attention noise "
+        f"floor max_abs={f_max:.4f} mean_abs={f_mean:.5f}); first tokens "
+        f"{t_tok} served {served} one-device {o_tok} (top-2 gaps "
+        f"{', '.join(f'{g:.4f}' for g in gap)}) on {card}")
+    check(d_max <= PREFILL_MAX_ABS and d_mean <= PREFILL_MEAN_ABS,
+          f"phase 22: {name}: logits max {d_max} mean {d_mean} from one "
+          f"device's")
+    for b, g in enumerate(gap):
+        if g > d_max:
+            check(t_tok[b] == o_tok[b] == served[b],
+                  f"phase 22: {name} row {b}: first token {t_tok[b]} "
+                  f"served {served[b]} one-device {o_tok[b]} (gap {g:.4f} "
+                  f"> {d_max:.4f})")
+    steps = recs[0]["steps"]
+    loss, gnorm = steps[0]["loss"], steps[0]["grad_norm"]
+    dl, dg = abs(loss - ref["first"][0]), abs(gnorm - ref["first"][1])
+    per_rank = "; ".join(
+        f"rank {r} {statistics.median(x['s'] for x in rec['steps'][1:] or rec['steps']):.3f} s/step, "
+        f"peak {rec['train_peak_gib']:.2f} GiB, collectives a step "
+        + ", ".join(f"{k} {c} ({b / 2**20:.0f} MiB)"
+                    for k, (c, b) in rec["steps"][-1]["collectives"].items())
+        for r, rec in enumerate(recs))
+    log(f"phase 22: {name} train: losses "
+        f"{[round(x['loss'], 5) for x in steps]}, grad norms "
+        f"{[round(x['grad_norm'], 4) for x in steps]}; first step "
+        f"{loss:.5f} / {gnorm:.5f}, one device {ref['first'][0]:.5f} / "
+        f"{ref['first'][1]:.5f}: apart {dl:.5f} / {dg:.5f} (limits "
+        f"{TRAIN_LOSS_ATOL} / {TRAIN_GNORM_ATOL}); {per_rank}; K4 0 in "
+        f"every step of every rank on {card}")
+    check(dl <= TRAIN_LOSS_ATOL and dg <= TRAIN_GNORM_ATOL,
+          f"phase 22: {name}: first step {loss} / {gnorm} vs one device "
+          f"{ref['first']}")
+    log(f"phase 22: {name}: {world}-rank launch in {wall:.1f}s")
+    return [want] * world
+
+
+def whole_phase(card) -> dict:
+    """Phase 22: `WHOLE_RUNS` (see above), one after the other, each
+    after its one-device references.  Returns K4's launches per rank per
+    prefill by run."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+
+    t_phase = time.perf_counter()
+    gc.collect()                  # the earlier phases' weights: the
+    torch.cuda.empty_cache()      # ranks need the card's memory
+    out_dir = tempfile.mkdtemp(prefix="whole-",
+                               dir=os.path.join(ROOT, "build"))
+    launches = {}
+    try:
+        for name in WHOLE_RUNS:
+            ref = whole_references(name)
+            launches[name] = whole_run(card, name, ref, out_dir)
+            del ref
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    dt = time.perf_counter() - t_phase
+    log(f"phase 22: attention whole on every model rank in {dt:.1f}s on "
+        f"{card}")
+    check(dt < WHOLE_LIMIT_S, f"phase 22 took {dt:.1f}s (limit "
+                              f"{WHOLE_LIMIT_S:g}s)")
+    return launches
 
 
 # ------------------------------------------------------------- phase 1 --
@@ -4754,6 +5178,10 @@ def main() -> int:
             k["dryrun_launches"] = dry["launches"].get(mode, 0)
         if k["name"] == "flash_attention":
             k["dryrun_meta_calls"] = dry["flash"]
+    whole = whole_phase(card)
+    for k in kernels:
+        if k["name"] == "flash_attention":
+            k["whole_launches"] = whole
     log(f"done in {time.perf_counter() - t_all:.1f}s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -4768,4 +5196,6 @@ if __name__ == "__main__":
         sys.exit(tp_child(sys.argv[2:]))
     if sys.argv[1:2] == ["--tp-train-child"]:
         sys.exit(tp_train_child(sys.argv[2:]))
+    if sys.argv[1:2] == ["--whole-child"]:
+        sys.exit(whole_child(sys.argv[2:]))
     sys.exit(main())

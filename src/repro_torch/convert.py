@@ -99,26 +99,30 @@ def opt_state_from_reference(state: dict, *, device="cpu") -> dict:
 
 
 def shard_params(tree: dict, cfg, grid, *, model_rank: int | None = None,
-                 data_rank: int | None = None, zero: bool = False):
+                 data_rank: int | None = None, zero: bool = False,
+                 layout: str | None = None):
     """A rank's shard of a whole LM param tree (`models/transformer.py`
-    layout; fp32 masters or cast for serving): each leaf that
+    layout; fp32 masters or cast for serving) under `layout` (default
+    `sharding.pick_layout`'s): each leaf that
     `parallel.sharding.partition` splits over the model axis keeps the
     indices of model rank `model_rank` (default: `grid`'s own), the
-    others are kept whole.  With `zero` (training), each leaf then
-    keeps the block of data rank `data_rank` (default: `grid`'s own)
-    along the dim `sharding.data_partition` names: the rank's
-    `sharding.Piece`.  Works on the parts `transformer.init` draws one
-    at a time too ({"embed": ...}, {"layers": [...]}), and on the AdamW
-    moments, which mirror the params."""
-    from .parallel.sharding import train_piece
+    others are kept whole (every leaf under 'dp_replicated').  With
+    `zero` (training), each leaf then keeps the block of data rank
+    `data_rank` (default: `grid`'s own) along the dim
+    `sharding.data_partition` names: the rank's `sharding.Piece`.
+    Works on the parts `transformer.init` draws one at a time too
+    ({"embed": ...}, {"layers": [...]}), and on the AdamW moments,
+    which mirror the params."""
+    from .parallel.sharding import pick_layout, train_piece
 
     g = _at(grid, model_rank, data_rank)
+    layout = layout or pick_layout(cfg, grid)
 
     def one(path, leaf):
         if zero:
-            return train_piece(path, tuple(leaf.shape), cfg, g).cut(
+            return train_piece(path, tuple(leaf.shape), cfg, g, layout).cut(
                 leaf, g).contiguous()
-        cut = partition(path, tuple(leaf.shape), cfg, g)
+        cut = partition(path, tuple(leaf.shape), cfg, g, layout)
         if cut is None:
             return leaf
         dim, idx = cut
@@ -137,14 +141,16 @@ def _at(grid, model_rank, data_rank):
     return replace(grid, rank=d * grid.model + m)
 
 
-def gather_params(shards: list, cfg, grid, *, zero: bool = False) -> dict:
+def gather_params(shards: list, cfg, grid, *, zero: bool = False,
+                  layout: str | None = None) -> dict:
     """The whole tree from every rank's shard: the inverse of
-    `shard_params`.  `shards[r]` is model rank r's, or with `zero` the
-    shard of rank r = data rank · model + model rank (every rank of
-    the grid)."""
+    `shard_params` (same `layout`).  `shards[r]` is model rank r's, or
+    with `zero` the shard of rank r = data rank · model + model rank
+    (every rank of the grid)."""
     from .models.transformer import init
-    from .parallel.sharding import train_piece
+    from .parallel.sharding import pick_layout, train_piece
 
+    layout = layout or pick_layout(cfg, grid)
     like = init(cfg, device="meta")
     flat = [[leaf for _, leaf in leaves(in_order_of(like, s))]
             for s in shards]
@@ -155,10 +161,11 @@ def gather_params(shards: list, cfg, grid, *, zero: bool = False) -> dict:
         parts = [f[i] for f in flat]
         if zero:
             pieces = [train_piece(path, tuple(whole.shape), cfg,
-                                  _at(grid, r % grid.model, r // grid.model))
+                                  _at(grid, r % grid.model, r // grid.model),
+                                  layout)
                       for r in range(len(parts))]
             return _assemble(whole, parts, pieces, grid)
-        cut = partition(path, tuple(whole.shape), cfg, grid)
+        cut = partition(path, tuple(whole.shape), cfg, grid, layout)
         if cut is None:
             return parts[0]
         dim, idx = cut

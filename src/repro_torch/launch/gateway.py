@@ -39,12 +39,12 @@ tenant is sharded over the ranks, one process per GPU
 (`serve/spmd.py`): rank 0 owns the scheduler and the RPC server and
 broadcasts each round to the other ranks, which replay it on their own
 `QueryEngine(group=)`.  The LM tenant spans the ranks as a data ×
-model grid (`--model-axis M`, which must divide the world; tensor
-parallelism as in `launch.serve`): every rank holds its shard of the
-session and makes the calls rank 0's scheduler makes, which rank 0
-broadcasts before each.  Rank 0 alone prints, with one line per rank
-(its counting wall and K1 launches), and every rank exits with the
-same code.
+model grid (`--model-axis M`, any divisor of the world; the layout
+and tensor parallelism as in `launch.serve`): every rank holds its
+shard of the session and makes the calls rank 0's scheduler makes,
+which rank 0 broadcasts before each.  Rank 0 alone prints, with one
+line per rank (its counting wall and K1 launches), and every rank
+exits with the same code.
 
     PYTHONPATH=src torchrun --standalone --nproc-per-node 2 \
         -m repro_torch.launch.gateway --no-lm --listen 0 --port-file F

@@ -18,8 +18,8 @@ negligible.
 Tensor-parallel serving lays the ranks out on a data × model grid
 (`make_grid`, the counterpart of `make_host_mesh`): rank r sits at data
 index r // M and model index r % M, and the grid carries the process
-groups of its model axis (the M ranks of one data index) and its data
-axis.  `make_production_grid` is the counterpart of
+groups of its model axis (the M ranks of one data index), its data
+axis and all its ranks.  `make_production_grid` is the counterpart of
 `make_production_mesh` (the dry-run's 16 x 16 and 2 x 16 x 16 grids),
 and `HW` holds the card's rates the roofline divides by.
 
@@ -127,9 +127,10 @@ def make_grid(group=None, *, model: int = 1):
     """A data × model `parallel.sharding.Grid` over the ranks of `group`
     (default: the world), in the order of the reference's
     `make_host_mesh` (the devices reshaped to (n // model, model)).
-    Creates the model-axis and data-axis subgroups (a collective: every
-    rank creates every subgroup, in the same order); raises when
-    `model` does not divide the world."""
+    Creates the model-axis and data-axis subgroups, then one of all the
+    grid's ranks (the batch's group under 'dp_replicated'; a
+    collective: every rank creates every subgroup, in the same order);
+    raises when `model` does not divide the world."""
     from ..parallel.sharding import Grid
 
     group = dist.group.WORLD if group is None else group
@@ -151,8 +152,9 @@ def make_grid(group=None, *, model: int = 1):
         g = dist.new_group([ranks[d * model + m] for d in range(rows)], **kw)
         if rank % model == m:
             data_group = g
+    whole = dist.new_group(ranks, **kw)
     return Grid(("data", "model"), (rows, model), rank=rank,
-                model_group=model_group, data_group=data_group)
+                model_group=model_group, data_group=data_group, group=whole)
 
 
 def make_production_grid(*, multi_pod: bool = False):

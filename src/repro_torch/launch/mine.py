@@ -22,6 +22,10 @@ GPU (`ShardedMatcher`; `launch/mesh.py` picks the backend), unless
 `--single-device` is passed; rank 0 alone prints, with one line per
 rank (its wall before the reduction and its K1 launches) and the
 balance, max over mean rank wall; every rank exits with the same code.
+With `--cache-dir` the engine persists its plans in a `PlanStore`
+there, so a repeat invocation loads the plan instead of searching
+again (the `config:` line then says "persisted plan"); under torchrun
+rank 0 alone writes it.
 """
 from __future__ import annotations
 
@@ -69,6 +73,9 @@ def parse_args(argv=None):
     ap.add_argument("--single-device", action="store_true",
                     help="count on this process's device even under "
                          "torchrun")
+    ap.add_argument("--cache-dir", default="",
+                    help="persistent plan store: repeat invocations skip "
+                         "the configuration search (query/store.py)")
     add_trace_args(ap)
     return ap.parse_args(argv)
 
@@ -80,7 +87,7 @@ def run(args, *, log=print) -> MineResult:
     from ..configs.graphpi import get_dataset, get_pattern
     from ..core.executor import ExecutorConfig
     from ..kernels import ops
-    from ..query import QueryEngine, QueryRequest
+    from ..query import PlanStore, QueryEngine, QueryRequest
 
     pattern = get_pattern(args.pattern)
     graph = get_dataset(args.dataset)
@@ -93,8 +100,9 @@ def run(args, *, log=print) -> MineResult:
     group, device = None, args.device
     if launched_sharded(args.single_device):
         group, device = shared_group(args.device, log=log)
+    store = PlanStore(args.cache_dir) if args.cache_dir else None
     engine = QueryEngine(graph, cfg=ExecutorConfig(capacity=args.capacity),
-                         device=device, group=group)
+                         device=device, group=group, store=store)
     log(f"[mine] stats: tri_cnt={engine.stats.tri_cnt} "
         f"({engine.stats_seconds:.2f}s)")
 
@@ -106,7 +114,8 @@ def run(args, *, log=print) -> MineResult:
     res = ticket.result
     entry = next(e for e in engine.cache.entries()
                  if e.canon_key == res.canon_key and e.mode == args.mode)
-    how = "cache hit" if res.cache_hit else "cache miss"
+    how = ("cache hit" if res.cache_hit else "persisted plan"
+           if engine.cache.stats.persist_hits else "cache miss")
     log(f"[mine] config: schedule={res.order} restrictions={res.res_set} "
         f"iep_k={res.iep_k} (search {res.search_seconds:.3f}s, "
         f"compile {res.compile_seconds:.3f}s, {how})")

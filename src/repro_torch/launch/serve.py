@@ -21,9 +21,14 @@ latest step and continues decoding.
 
 Tensor parallelism: under torchrun every rank serves its shard of the
 model, the ranks laid out as a data × model grid (`--model-axis M`,
-which must divide the world; `launch.mesh.make_grid`): weights, heads,
+any divisor of the world; `launch.mesh.make_grid`) under the layout
+the reference's `pick_layout` gives.  Under 'tp2d': weights, heads,
 experts, Mamba heads and the vocabulary split over the model axis
-(`parallel.sharding`), the batch over the data axis.  Gloo when ranks
+(`parallel.sharding`; attention whole on every model rank where its
+heads do not divide the axis), the batch over the data axis.  Under
+'dp_replicated' (a model whose state fits and whose heads the axis
+does not divide: whisper-base at 3 or 16): every rank holds the whole
+model and its rows of the batch, split over every rank.  Gloo when ranks
 share a card or run on the CPU, NCCL with a card each
 (`mesh.backend_rule`).  Rank 0 prints, with one `rank r:` line per rank
 (its K4 launches, prefill seconds, decode ms/step, peak device memory
@@ -115,7 +120,7 @@ def main(argv=None) -> int:
 def rank_lines(group, session) -> list:
     """Every rank's `rank r:` line (a collective): its K4 launches,
     prefill seconds, decode ms/step, peak device memory and the batch
-    prefill's collectives by kind."""
+    prefill's collectives by kind; then the grid and its layout."""
     import torch
 
     from .mesh import gather
@@ -132,7 +137,8 @@ def rank_lines(group, session) -> list:
             f"decode={ms:.3f}ms/step peak={gib:.2f}GiB prefill collectives "
             + " ".join(f"{k}={n}" for k, n in coll.items())
             for r, (k4, pre, ms, gib, coll) in enumerate(ranks)] + [
-        f"[serve] grid data={g.data} model={g.model} over {g.size} ranks"]
+        f"[serve] grid data={g.data} model={g.model} over {g.size} ranks, "
+        f"layout {session.layout}"]
 
 
 def report(args, session, log=print) -> None:

@@ -19,9 +19,12 @@ reduced same-family config on the CPU).  Fault tolerance:
    another grid, or on one device, than the one that wrote it.
 
 Sharded training: under torchrun the ranks form a data × model grid
-(`--model-axis M`, which must divide the world; `launch.mesh.make_grid`)
-and train the reference's 2-D layout (`train.train_step`): tensor
-parallelism over the model axis, ZeRO-3 over the data axis.  Gloo when
+(`--model-axis M`, any divisor of the world; `launch.mesh.make_grid`)
+and train under the layout the reference's `pick_layout` gives
+(`train.train_step`): 'tp2d', tensor parallelism over the model axis
+and ZeRO-3 over the data axis, or 'dp_replicated' (whisper-base at a
+model axis of 3 or 16), every leaf whole on every rank and the batch
+split over all of them.  Gloo when
 ranks share a card or run on the CPU, NCCL with a card each
 (`mesh.backend_rule`).  Rank 0 prints the step lines and one `[train]
 rank r:` line per rank (the last step it ran; its seconds a step,
@@ -79,6 +82,7 @@ def main(argv=None) -> int:
 
     from ..configs import get_config, get_smoke_config
     from ..device import resolve_device
+    from ..parallel.sharding import pick_layout
     from ..train import checkpoint as ckpt
     from ..train.data import DataConfig, SyntheticLM
     from ..train.optimizer import AdamWConfig, init_opt_state
@@ -111,12 +115,13 @@ def main(argv=None) -> int:
         cfg = cfg.scaled(n_layers=args.layers)
     opt_cfg = AdamWConfig(lr=args.lr, total_steps=args.steps,
                           warmup_steps=max(args.steps // 20, 5))
+    layout = None if grid is None else pick_layout(cfg, grid)
     step_fn = make_train_step(
         cfg, opt_cfg,
         TrainOptions(remat=True, q_chunk=0, loss_chunk=0,
                      accum_steps=args.accum),
-        device=device, grid=grid)
-    pieces = None if grid is None else state_pieces(cfg, grid)
+        device=device, grid=grid, layout=layout)
+    pieces = None if grid is None else state_pieces(cfg, grid, layout)
     start = 0
     if args.ckpt_dir and ckpt.latest_step(args.ckpt_dir) is not None:
         like = abstract_params(cfg)
@@ -127,7 +132,7 @@ def main(argv=None) -> int:
         log(f"[train] resumed from step {start}")
     else:
         params, opt_state = init_train_state(cfg, seed=0, device=device,
-                                             grid=grid)
+                                             grid=grid, layout=layout)
 
     data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=args.seq,
                                   global_batch=args.batch), cfg)
@@ -185,7 +190,7 @@ def main(argv=None) -> int:
     from .mesh import agreed_exit
 
     for line in rank_lines(group, grid, device, walls, collectives,
-                           start + len(walls)):
+                           start + len(walls), layout):
         log(line)
     return agreed_exit(group, 0)
 
@@ -215,11 +220,12 @@ def _any_rank(flag: bool) -> bool:
     return bool(t.item())
 
 
-def rank_lines(group, grid, device, walls, collectives, last) -> list:
+def rank_lines(group, grid, device, walls, collectives, last,
+               layout) -> list:
     """Every rank's `[train] rank r:` line (a collective): the last step
     it ran, seconds a step (the median after the first), peak device
-    memory and the last step's collectives by kind, with their
-    bytes."""
+    memory and the last step's collectives by kind, with their bytes;
+    then the grid and its `layout`."""
     import torch
 
     from .mesh import gather
@@ -234,7 +240,7 @@ def rank_lines(group, grid, device, walls, collectives, last) -> list:
                 for k, (n, b) in coll.items()) + "}"
             for r, (k, s, gib, coll) in enumerate(ranks)] + [
         f"[train] grid data={grid.data} model={grid.model} over "
-        f"{grid.size} ranks"]
+        f"{grid.size} ranks, layout {layout}"]
 
 
 if __name__ == "__main__":

@@ -27,8 +27,13 @@ part whole.  Where the KV heads do not divide the model axis, wk / wv
 stay whole and a rank picks the KV heads its query heads read
 (`_local_kv`); each rank's gradient of them, and of the q / k norms
 every head shares, is then partial and summed over the model axis.
-Decode attention over a cache split along the sequence is
-flash-decoding (`_attention_decode_seq`).
+Where the query heads do not divide the model axis, attention is whole
+on every model rank (`sharding.heads_whole`; and every layer is whole
+under 'dp_replicated'): each rank computes every head on the same
+input, its input takes no `tp.copy_in` and wo's output no all_reduce,
+so each rank's gradient of the attention weights and of its input is
+already whole.  Decode attention over a cache split along the sequence
+is flash-decoding (`_attention_decode_seq`).
 """
 from __future__ import annotations
 
@@ -401,10 +406,11 @@ def _attention_decode_seq(p, x, cache_k, cache_v, pos, cfg, dtype,
     model axis, so wk / wv are whole): model rank r holds positions
     [r·S, (r+1)·S) of every KV head, and only the owner of `pos`
     writes the new K/V.  Every rank attends all H query heads (gathered
-    over the model axis) over its slice; the partial softmaxes combine
-    through an all_reduce MAX of the row maxima and one SUM of the
-    rescaled sums and outputs.  Then wo takes this rank's heads' rows,
-    summed over the model axis."""
+    over the model axis where its weights hold some of them) over its
+    slice; the partial softmaxes combine through an all_reduce MAX of
+    the row maxima and one SUM of the rescaled sums and outputs.  Then
+    wo takes this rank's heads' rows, summed over the model axis, or
+    every row where the heads are whole."""
     ctx = tp.active()
     B, hd = x.shape[0], cfg.head_dim
     S = cache_k.shape[1]
@@ -420,7 +426,8 @@ def _attention_decode_seq(p, x, cache_k, cache_v, pos, cfg, dtype,
                                     cache_k[rows, at])
     cache_v[rows, at] = torch.where(own, v[:, 0].to(cache_v.dtype),
                                     cache_v[rows, at])
-    q = tp.all_gather(q, dim=2)                       # [B, 1, H, hd]
+    if Hl < cfg.n_heads:
+        q = tp.all_gather(q, dim=2)                   # [B, 1, H, hd]
     H, K = q.shape[2], cache_k.shape[2]
     qh = q.reshape(B, 1, K, H // K, hd)
     scores = torch.einsum("bqkgh,bskh->bkgqs", qh,
@@ -438,6 +445,7 @@ def _attention_decode_seq(p, x, cache_k, cache_v, pos, cfg, dtype,
     part = tp.all_reduce(part)
     out = part[:, H:].reshape(B, K, H // K, hd) / part[:, :H].reshape(
         B, K, H // K, 1)
-    mine = out.reshape(B, 1, H, hd)[:, :, ctx.model_rank * Hl:
-                                    (ctx.model_rank + 1) * Hl]
-    return out_proj(p, mine.to(dtype), cfg, dtype), cache_k, cache_v
+    out = out.reshape(B, 1, H, hd)
+    if Hl < H:
+        out = out[:, :, ctx.model_rank * Hl:(ctx.model_rank + 1) * Hl]
+    return out_proj(p, out.to(dtype), cfg, dtype), cache_k, cache_v

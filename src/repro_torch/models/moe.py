@@ -154,7 +154,7 @@ def _keep(idx: torch.Tensor, whole: torch.Tensor, cfg) -> torch.Tensor:
     keep[order] = kept
     if whole.shape[0] == idx.shape[0]:
         return keep
-    first = tp.active().grid.data_rank * idx.numel()
+    first = tp.active().rows_rank * idx.numel()
     return keep[first:first + idx.numel()]
 
 

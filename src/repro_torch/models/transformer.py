@@ -38,7 +38,8 @@ scanned superblock: the math is the same.
 
 Tensor parallelism (serving and training, under `parallel.tp`): a
 rank's tree holds its part of each leaf (`convert.shard_params`, or
-`init(..., shard=)`).  The embedding is vocabulary-parallel where the
+`init(..., shard=)`), every leaf whole under the 'dp_replicated'
+layout.  The embedding is vocabulary-parallel where the
 vocabulary divides the model axis (a rank looks up its rows, zeros
 elsewhere, summed over the model axis), serving gathers the logits
 along the vocabulary so every rank takes the same argmax, training
@@ -62,7 +63,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..parallel import tp
-from ..parallel.sharding import kv_layout, local_batch
+from ..parallel.sharding import (heads_whole, kv_layout, local_batch,
+                                 pick_layout)
 from . import layers as L
 from .layers import (Params, cast, init_dense, init_mlp, init_rmsnorm,
                      rms_norm, swiglu_mlp)
@@ -437,22 +439,26 @@ def loss_fn(cfg, *, remat: bool = False, q_chunk: int = 0,
 
 # ------------------------------------------------------------- serving ----
 def init_cache(cfg, batch: int, max_seq: int, dtype=torch.bfloat16,
-               device="cpu", grid=None):
+               device="cpu", grid=None, layout: str | None = None):
     """Decode cache: per layer a zeroed K and V [batch, max_seq, K, hd]
     in `dtype` (attention) or a zeroed fp32 Mamba state; encdec adds the
     cross-attention K/V per decoder layer ("cross_kv").  With `grid`,
-    one rank's part: its rows of the batch (`sharding.local_batch`), its
-    KV heads or its 1/M of the positions (`sharding.kv_layout`), its
-    Mamba heads, and the cross K/V's heads where they divide the model
-    axis."""
+    one rank's part under `layout` (default `sharding.pick_layout`'s):
+    its rows of the batch (`sharding.local_batch`), its KV heads or its
+    1/M of the positions (`sharding.kv_layout`), its Mamba heads, and
+    the cross K/V's heads where `sharding.partition` splits wk / wv;
+    under 'dp_replicated' its rows whole."""
     B, S, K, Kx, m = batch, max_seq, cfg.n_kv_heads, cfg.n_kv_heads, 1
     if grid is not None:
-        m = grid.model
-        B = local_batch(batch, grid)[1]
-        layout = kv_layout(cfg, batch, max_seq, grid)
-        K = K // m if layout == "heads" else K
-        S = S // m if layout == "seq" else S
-        Kx = Kx // m if Kx % m == 0 else Kx
+        layout = layout or pick_layout(cfg, grid)
+        B = local_batch(batch, grid, layout)[1]
+        kv = kv_layout(cfg, batch, max_seq, grid, layout)
+        if layout == "tp2d":
+            m = grid.model
+        K = K // m if kv == "heads" else K
+        S = S // m if kv == "seq" else S
+        if m > 1 and not heads_whole(cfg, grid) and Kx % m == 0:
+            Kx //= m
 
     def zeros_kv(seq, heads):
         shape = (B, seq, heads, cfg.head_dim)

@@ -33,16 +33,24 @@ layers for `lax.scan`: a leaf's path is the reference's key path
 without the list index, and its spec is the reference's without the
 leading stack entries (which the reference pads with None).
 
-What a rank holds in serving (`partition`) follows the specs' "model"
-entries; in training (`train_piece`) a rank holds the intersection of
-that model-axis part and its block of the DP entry's dim
-(`data_partition`, ZeRO-3 over the data axis), with the moments laid
-out like the params (`opt_state_shardings`).  The designed differences
-from the reference's specs:
+What a rank holds follows `pick_layout`, as in the reference.  Under
+'tp2d' a rank's part in serving (`partition`) follows the specs'
+"model" entries; in training (`train_piece`) a rank holds the
+intersection of that model-axis part and its block of the DP entry's
+dim (`data_partition`, ZeRO-3 over the data axis), with the moments
+laid out like the params (`opt_state_shardings`).  Under
+'dp_replicated' every rank holds every leaf whole and takes its rows
+of the batch over every axis (`local_batch`).  The designed
+differences from the reference's specs:
  * in serving the DP entries are not applied: each data group holds a
    whole model-axis shard (the batch is still split over data);
  * wk / wv stay whole where the KV heads do not divide the model axis
    (granite-34b's one KV head); the reference shards their columns and
+   GSPMD regathers them;
+ * under 'tp2d', attention whose query heads the model axis does not
+   divide (minitron-4b's 24 at 16) is whole on every model rank: wq,
+   wk, wv, wo and the q / k norms (their DP blocks still apply in
+   training); the reference shards wq / wo by columns mid-head and
    GSPMD regathers them;
  * a Mamba block is split by heads (z, x, dt, A_log, D, dt_bias, the
    gated norm's scale, x's conv channels and out_proj's rows), its one
@@ -50,7 +58,10 @@ from the reference's specs:
    columns z | x | B | C | dt into contiguous pieces;
  * the enc-dec cross-attention cache is split by heads like the
    self-attention it comes from, where the reference's spec splits its
-   sequence.
+   sequence;
+ * under 'dp_replicated' the decode cache holds the rank's rows whole
+   (every head and position), where the reference's follows
+   `choose_kv_spec`.
 """
 from __future__ import annotations
 
@@ -68,14 +79,16 @@ MP = "model"
 class Grid:
     """Named axes and their sizes (`shape` maps name → size, as a
     mesh's does).  A launch's grid also knows this process's rank and
-    the process groups of its model and data axes (`launch.mesh.
-    make_grid`); a grid built for specs alone has none."""
+    the process groups of its model and data axes and of all its ranks
+    (`group`; `launch.mesh.make_grid`); a grid built for specs alone
+    has none."""
 
     axis_names: tuple
     sizes: tuple
     rank: int = 0
     model_group: Any = None
     data_group: Any = None
+    group: Any = None
 
     @property
     def shape(self) -> dict:
@@ -151,9 +164,9 @@ def pick_layout(cfg, mesh: Grid) -> str:
     sharded, TP×FSDP) by default; 'dp_replicated' (params replicated,
     batch over every axis) for a model whose replicated params and
     optimizer state fit the reference's 16 GB budget and whose head
-    count cannot fill the model axis.  Kept as the reference has it;
-    serving in the port takes the 'tp2d' branch (every config's head
-    count divides a model axis of up to 8)."""
+    count cannot fill the model axis.  Serving and training both follow
+    it (whisper-base at a model axis of 3 or 16 takes 'dp_replicated');
+    `partition` and `local_batch` say what a rank then holds."""
     m = mesh.shape[MP]
     fits = cfg.param_count() * 16 < 6e9
     heads_ok = cfg.n_heads == 0 or cfg.n_heads % m == 0
@@ -338,24 +351,51 @@ def cache_shardings(cfg, cache_shape, batch: int, seq: int, mesh: Grid):
 
 
 # ============================================================ a rank's part
-def local_batch(batch: int, mesh: Grid) -> tuple[int, int]:
+def batch_split(batch: int, mesh: Grid, layout: str = "tp2d"):
+    """Which ranks split a batch of `batch` rows, as `batch_specs`
+    shards it: "grid" (every rank its block: 'dp_replicated' where the
+    grid's size divides the batch), "data" (each data index its block,
+    the model ranks of one index the same rows) or None (every rank
+    every row).  A split over a proper prefix of the DP axes (the
+    production grid's "pod" alone) is left whole."""
+    if batch <= 1:
+        return None
+    if layout == "dp_replicated" and mesh.size > 1 and batch % mesh.size == 0:
+        return "grid"
+    if mesh.data > 1 and batch % mesh.data == 0:
+        return "data"
+    return None
+
+
+def local_batch(batch: int, mesh: Grid,
+                layout: str = "tp2d") -> tuple[int, int]:
     """(first row, rows) of a batch of `batch` rows this rank holds:
-    its data index's block where `batch_specs` splits the batch over
-    the data axis, else every row."""
-    if mesh.data == 1 or batch <= 1 or batch % mesh.data:
+    its block where `batch_split` splits the batch, else every row."""
+    split = batch_split(batch, mesh, layout)
+    if split is None:
         return 0, batch
-    rows = batch // mesh.data
-    return mesh.data_rank * rows, rows
+    n, at = ((mesh.size, mesh.rank) if split == "grid"
+             else (mesh.data, mesh.data_rank))
+    rows = batch // n
+    return at * rows, rows
 
 
-def kv_layout(cfg, batch: int, seq: int, mesh: Grid) -> str:
-    """How `choose_kv_spec` splits the self-attention cache over the
-    model axis: "heads", "seq" (a rank holds seq / M positions) or
-    "whole"."""
-    if mesh.model == 1:
+def kv_layout(cfg, batch: int, seq: int, mesh: Grid,
+              layout: str = "tp2d") -> str:
+    """How the self-attention cache is split over the model axis:
+    "heads", "seq" (a rank holds seq / M positions) or "whole", as
+    `choose_kv_spec` says; "whole" under 'dp_replicated' (no collective
+    runs over the model axis)."""
+    if mesh.model == 1 or layout == "dp_replicated":
         return "whole"
     spec = choose_kv_spec(cfg, batch, seq, mesh)
     return "heads" if spec[2] == MP else "seq" if spec[1] == MP else "whole"
+
+
+def heads_whole(cfg, mesh: Grid) -> bool:
+    """Whether attention stays whole on every model rank: its query
+    heads do not divide the model axis."""
+    return cfg.n_heads > 0 and cfg.n_heads % mesh.model != 0
 
 
 def _span(r: int, n: int, m: int, base: int = 0) -> torch.Tensor:
@@ -369,22 +409,28 @@ def _need(what: str, n: int, m: int) -> None:
 
 
 def partition(path: tuple[str, ...], shape: tuple[int, ...], cfg,
-              mesh: Grid):
+              mesh: Grid, layout: str = "tp2d"):
     """How a parameter leaf is split over the model axis in serving:
     None (every rank holds it whole) or (dim, idx) with idx(r) the
-    indices along `dim` that model rank r holds.  Raises where the
-    heads do not divide the model axis."""
+    indices along `dim` that model rank r holds.  Every leaf is whole
+    under 'dp_replicated'; under 'tp2d' the attention leaves are whole
+    where the query heads do not divide the model axis (`heads_whole`),
+    and wk / wv where the KV heads do not.  Raises where a Mamba
+    block's heads do not divide it: no config has both Mamba heads and
+    attention heads the grids used here fail to divide, so no layout
+    replicates a Mamba block."""
     m = mesh.model
-    if m == 1:
+    if m == 1 or layout == "dp_replicated":
         return None
     if "ssm" in path:
         return _mamba_partition(path[path.index("ssm") + 1:], shape, cfg, m)
     if _match(path, ("wq", "w")) or _match(path, ("wo", "w")):
-        _need("the attention heads", cfg.n_heads, m)
+        if heads_whole(cfg, mesh):
+            return None
         dim = 1 if path[-2] == "wq" else 0
         return dim, lambda r: _span(r, shape[dim], m)
     if _match(path, ("wk", "w")) or _match(path, ("wv", "w")):
-        if cfg.n_kv_heads % m:
+        if heads_whole(cfg, mesh) or cfg.n_kv_heads % m:
             return None
         return 1, lambda r: _span(r, shape[1], m)
     spec = param_spec(path, shape, mesh)
@@ -492,9 +538,9 @@ class Piece:
 
 def train_piece(path: tuple[str, ...], shape: tuple[int, ...], cfg,
                 mesh: Grid, layout: str = "tp2d") -> Piece:
-    """A leaf's `Piece` of `mesh`'s ranks in training.  Raises where the
-    heads do not divide the model axis (`partition`)."""
-    model = partition(path, shape, cfg, mesh)
+    """A leaf's `Piece` of `mesh`'s ranks in training under `layout`
+    (`Piece(None, None)` for every leaf under 'dp_replicated')."""
+    model = partition(path, shape, cfg, mesh, layout)
     data = data_partition(path, shape, mesh, layout)
     shared = None
     if model is not None and "ssm" in path:

@@ -51,16 +51,17 @@ from .sharding import Grid
 class Ctx:
     """What a step's layers need to know: the grid, the config, how the
     self-attention cache is split over the model axis (`kv`:
-    `sharding.kv_layout`), whether the batch is split over the data
-    axis (the MoE keep decision is then taken over the whole batch, and
-    the loss is the whole batch's mean) and, in training under ZeRO-3,
-    `zero`: a tree like the params holding, per leaf, the dim its rank
-    holds a data-axis block of (None: whole)."""
+    `sharding.kv_layout`), which ranks split the batch (`rows`:
+    `sharding.batch_split`, "data", "grid" or None; the MoE keep
+    decision is then taken over the whole batch, and the loss is the
+    whole batch's mean) and, in training under ZeRO-3, `zero`: a tree
+    like the params holding, per leaf, the dim its rank holds a
+    data-axis block of (None: whole)."""
 
     grid: Grid
     cfg: object
     kv: str = "heads"
-    batch_sharded: bool = False
+    rows: str | None = None
     zero: Any = None
 
     @property
@@ -70,6 +71,16 @@ class Ctx:
     @property
     def model_rank(self) -> int:
         return self.grid.model_rank
+
+    @property
+    def rows_group(self):
+        """The process group of the ranks that split the batch."""
+        return self.grid.group if self.rows == "grid" else self.grid.data_group
+
+    @property
+    def rows_rank(self) -> int:
+        """This rank's block of the batch."""
+        return self.grid.rank if self.rows == "grid" else self.grid.data_rank
 
 
 _ACTIVE: list[Ctx] = []
@@ -272,22 +283,24 @@ def zero_of(*path):
 
 
 def data_sum(x: torch.Tensor) -> torch.Tensor:
-    """`x` summed over the data axis where the active step splits the
-    batch, else `x` (no gradient: counts and reported losses)."""
+    """`x` summed over the ranks that split the batch (`Ctx.rows`: the
+    data axis, or every rank under 'dp_replicated') where the active
+    step splits it, else `x` (no gradient: counts, reported losses, the
+    gradients of whole leaves)."""
     ctx = active()
-    if ctx is None or not ctx.batch_sharded:
+    if ctx is None or ctx.rows is None:
         return x
-    return _reduce(x.detach(), ctx.grid.data_group, dist.ReduceOp.SUM)
+    return _reduce(x.detach(), ctx.rows_group, dist.ReduceOp.SUM)
 
 
 def gather_batch(x: torch.Tensor) -> torch.Tensor:
-    """Every data rank's rows of `x` (dim 0) in rank order, where the
-    active step splits the batch; else `x` (no gradient: the MoE's
-    routing indices, the served logits)."""
+    """Every row block of `x` (dim 0) in the order of the ranks that
+    split the batch, where the active step splits it; else `x` (no
+    gradient: the MoE's routing indices, the served logits)."""
     ctx = active()
-    if ctx is None or not ctx.batch_sharded:
+    if ctx is None or ctx.rows is None:
         return x
-    return _gather(x.detach(), ctx.grid.data_group, 0, "gather_batch")
+    return _gather(x.detach(), ctx.rows_group, 0, "gather_batch")
 
 
 def whole(x: torch.Tensor, piece, grid: Grid) -> torch.Tensor:

@@ -46,10 +46,14 @@ fit one card whole.
 Tensor parallelism: with `group` (a torch.distributed process group,
 one process per GPU) every rank of the group builds the same session
 and makes the same calls.  The ranks form a data × model grid
-(`launch.mesh.shared_grid(model_axis, group)`); each draws the same
-weights from the seed and keeps its shard of each part as it is drawn
-(`convert.shard_params`), holds its part of the cache, and sees the
-whole batch's logits, so every rank takes the same tokens.  Decode
+(`launch.mesh.shared_grid(model_axis, group)`) under the layout
+`pick_layout` gives (`layout`); each draws the same weights from the
+seed and keeps its shard of each part as it is drawn
+(`convert.shard_params`), holds its rows and its part of the cache,
+and sees the whole batch's logits, so every rank takes the same tokens.
+An admitted sequence's cache row is written by the rank that holds its
+slot's row (`local_batch`: under 'dp_replicated' the rows are split
+over every rank).  Decode
 checkpoints are written per rank, under `rank<r>-of-<W>-model<M>/`;
 resuming under another grid raises.
 """
@@ -65,7 +69,7 @@ from ..device import resolve_device
 from ..kernels import ops
 from ..obs import get_tracer, timer
 from ..parallel import tp
-from ..parallel.sharding import kv_layout, local_batch
+from ..parallel.sharding import kv_layout, local_batch, pick_layout
 
 
 def fake_prompts(cfg, B, S, seed: int, device="cpu"):
@@ -168,11 +172,14 @@ class LMSession:
         self.max_seq = max_seq or (prompt_len + gen)
         self.grid = (None if group is None and model_axis == 1
                      else shared_grid(model_axis, group))
+        self.layout = (None if self.grid is None
+                       else pick_layout(self.cfg, self.grid))
         self._rows = (0, batch) if self.grid is None else local_batch(
-            batch, self.grid)
+            batch, self.grid, self.layout)
         self._kv_offset = 0
         if self.grid is not None and kv_layout(
-                self.cfg, batch, self.max_seq, self.grid) == "seq":
+                self.cfg, batch, self.max_seq, self.grid,
+                self.layout) == "seq":
             self._kv_offset = (self.grid.model_rank
                                * (self.max_seq // self.grid.model))
         self.seed = seed

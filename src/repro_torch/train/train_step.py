@@ -7,8 +7,10 @@ sequence-chunked loss.  Parameters are fp32 masters, updated in place
 
 On one device the step takes the whole tree.  Under a data × model
 grid (`launch.mesh.make_grid`; one process per rank) it takes the
-reference's 2-D layout, `pick_layout`'s 'tp2d': tensor parallelism over
-the model axis and ZeRO-3 over the data axis.  A rank holds its
+layout `pick_layout` gives, as the reference's does (or the one it is
+told).  Under 'tp2d', tensor parallelism over the model axis and
+ZeRO-3 over the data axis; under 'dp_replicated', every leaf whole on
+every rank and the batch split over every rank.  A rank holds its
 `sharding.Piece` of every leaf, of its gradient and of its AdamW
 moments (`opt_state_shardings`: m and v mirror the params, the step is
 replicated): the intersection of its model-axis part and its block of
@@ -18,8 +20,10 @@ layer gathers its leaves over the data axis inside the rematerialized
 layer (backward: their gradient reduce-scattered over it), the
 collectives of the model axis pass gradients as `parallel.tp` says,
 the loss is the rank's share of the whole batch's mean, and the leaves
-the data axis leaves whole have their gradient summed over it.  The
-global norm counts each element of the whole gradient once
+the data axis leaves whole have their gradient summed over the ranks
+that split the batch (each row counted once: the model ranks of a data
+index that hold the same rows do not add theirs).  The global norm
+counts each element of the whole gradient once
 (`optimizer.global_norm`), and AdamW runs elementwise on the blocks.
 """
 from __future__ import annotations
@@ -31,9 +35,9 @@ import torch
 from ..device import resolve_device
 from ..models import transformer as T
 from ..parallel import tp
-from ..parallel.sharding import (in_order_of, local_batch, map_leaves,
-                                 opt_state_shardings, pick_layout,
-                                 train_pieces)
+from ..parallel.sharding import (batch_split, in_order_of, local_batch,
+                                 map_leaves, opt_state_shardings,
+                                 pick_layout, train_pieces)
 from .optimizer import AdamWConfig, adamw_update, global_norm, init_opt_state
 from .tree import leaves, unflatten
 
@@ -66,25 +70,22 @@ def _grads(loss, params, batch):
     return l.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
 
-def pieces_of(cfg, grid):
-    """The `sharding.Piece` of every param leaf on `grid` (the 'tp2d'
-    layout; raises where a config takes another)."""
-    layout = pick_layout(cfg, grid)
-    if layout != "tp2d":
-        raise ValueError(f"{cfg.name}: layout {layout!r} on a model axis of "
-                         f"{grid.model}; the port trains 'tp2d' only")
+def pieces_of(cfg, grid, layout: str | None = None):
+    """The `sharding.Piece` of every param leaf on `grid` under
+    `layout` (default `pick_layout`'s)."""
+    layout = layout or pick_layout(cfg, grid)
     return train_pieces(cfg, abstract_params(cfg), grid, layout)
 
 
-def state_pieces(cfg, grid):
+def state_pieces(cfg, grid, layout: str | None = None):
     """Pieces of a {"p": params, "o": opt_state} tree (what `launch.train`
     checkpoints): the moments mirror the params, the step is whole."""
-    pieces = pieces_of(cfg, grid)
+    pieces = pieces_of(cfg, grid, layout)
     return {"p": pieces, "o": opt_state_shardings(None, pieces, grid)}
 
 
 def make_train_step(cfg, opt_cfg: AdamWConfig, opts: TrainOptions, *,
-                    device="cuda", grid=None):
+                    device="cuda", grid=None, layout: str | None = None):
     """Returns step(params, opt_state, batch) -> (params, opt_state,
     metrics), `params` and `opt_state` updated in place.  `batch` is
     moved to `device` (a CUDA device raises without a card).
@@ -97,13 +98,17 @@ def make_train_step(cfg, opt_cfg: AdamWConfig, opts: TrainOptions, *,
     (`_needs_chunk`, decided on the batch's shape).
 
     With `grid`, `params` and `opt_state` hold this rank's pieces
-    (`init_train_state(..., grid=)`), `batch` is the global batch, and
-    the metrics are the whole batch's, equal on every rank (see the
-    module).  The step also carries `step.gradients(params, batch)` ->
-    (loss, metrics, this rank's gradient blocks) and `step.pieces`."""
+    under `layout` (default `pick_layout`'s; `init_train_state(...,
+    grid=)`), `batch` is the global batch, and the metrics are the
+    whole batch's, equal on every rank (see the module).  A global
+    batch that the axes the layout splits it over do not divide raises.
+    The step also carries `step.gradients(params, batch)` -> (loss,
+    metrics, this rank's gradient blocks) and `step.pieces`."""
     device = resolve_device(device)
     losses = {}
-    pieces = None if grid is None else pieces_of(cfg, grid)
+    if grid is not None:
+        layout = layout or pick_layout(cfg, grid)
+    pieces = None if grid is None else pieces_of(cfg, grid, layout)
     zero = (None if pieces is None or grid.data == 1 else
             map_leaves(lambda _, p: p.data, pieces))
 
@@ -138,15 +143,18 @@ def make_train_step(cfg, opt_cfg: AdamWConfig, opts: TrainOptions, *,
         if grid is None:
             return grads_of(params, batch)
         B = next(iter(batch.values())).shape[0]
-        lo, n = local_batch(B, grid)
-        if grid.data > 1 and n == B:
-            raise ValueError(f"a batch of {B} rows does not split over a "
-                             f"data axis of {grid.data}")
-        ctx = tp.Ctx(grid, cfg, batch_sharded=n < B, zero=zero)
+        lo, n = local_batch(B, grid, layout)
+        split = batch_split(B, grid, layout)
+        over = grid.size if layout == "dp_replicated" else grid.data
+        if over > 1 and split is None:
+            raise ValueError(f"a batch of {B} rows splits over none of the "
+                             f"axes the {layout!r} layout splits it over "
+                             f"(data {grid.data}, model {grid.model})")
+        ctx = tp.Ctx(grid, cfg, rows=split, zero=zero)
         with tp.using(ctx):
             l, metrics, g = grads_of(params, {k: v[lo:lo + n]
                                               for k, v in batch.items()})
-            _sum_whole_over_data(g, in_order_of(g, pieces), grid)
+            _sum_whole_over_data(g, in_order_of(g, pieces))
             l = tp.data_sum(l)
         return l, {**metrics, "loss": l}, g
 
@@ -163,13 +171,14 @@ def make_train_step(cfg, opt_cfg: AdamWConfig, opts: TrainOptions, *,
     return step
 
 
-def _sum_whole_over_data(grads, pieces, grid) -> None:
-    """Sum, over the data axis and in place, the gradients of the leaves
-    the data axis leaves whole (every data rank holds them and saw its
+def _sum_whole_over_data(grads, pieces) -> None:
+    """Sum, in place over the ranks that split the batch (the data axis,
+    or every rank under 'dp_replicated'), the gradients of the leaves
+    the data axis leaves whole (every such rank holds them and saw its
     own rows), in one flat fp32 buffer (the blocks of the split leaves
     came back summed from their gathers' backward).  Runs under the
-    step's context, which splits the batch."""
-    if grid.data == 1:
+    step's context."""
+    if tp.active().rows is None:
         return
     whole = [g for p, g in zip(leaves(pieces), leaves(grads))
              if p.data is None]
@@ -189,12 +198,13 @@ def abstract_params(cfg):
     return T.init(cfg, 0, "meta")
 
 
-def init_train_state(cfg, *, seed: int = 0, device="cuda", grid=None):
+def init_train_state(cfg, *, seed: int = 0, device="cuda", grid=None,
+                     layout: str | None = None):
     """fp32 master params from `seed` (`models.transformer.init`) and a
     zeroed optimizer state, on `device`.  With `grid`, this rank's
-    pieces: every rank draws the same whole masters part by part and
-    keeps its piece of each (`pieces_of`), so one part at a time is
-    whole on the device."""
+    pieces under `layout` (default `pick_layout`'s): every rank draws
+    the same whole masters part by part and keeps its piece of each
+    (`pieces_of`), so one part at a time is whole on the device."""
     device = resolve_device(device)
     if grid is None:
         params = T.init(cfg, seed, device)
@@ -202,5 +212,5 @@ def init_train_state(cfg, *, seed: int = 0, device="cuda", grid=None):
         from ..convert import shard_params
 
         params = T.init(cfg, seed, device, shard=lambda part: shard_params(
-            part, cfg, grid, zero=True))
+            part, cfg, grid, zero=True, layout=layout))
     return params, init_opt_state(params)

@@ -4,8 +4,9 @@
         PYTHONPATH=src python tests/ref_tp.py CASES.json OUT_DIR
 
 Runs in a process of its own, because JAX fixes its device count at
-start-up.  For each case [arch, B, S, gen, meshes] of CASES.json (a
-mesh is [data, model] over the first data·model of 4 host devices) it
+start-up.  For each case [arch, B, S, gen, meshes(, layout)] of
+CASES.json (a mesh is [data, model] over the first data·model of 4
+host devices; `layout`, when given, replaces `pick_layout`'s choice) it
 loads the weights OUT_DIR/<arch>.weights.npz (the reference's param
 layout as flat key paths, written by the test) and the prompts
 OUT_DIR/<arch>.batch.npz, runs `repro.serve.serve_step.make_prefill`
@@ -28,6 +29,7 @@ from jax.sharding import Mesh  # noqa: E402
 from repro import configs  # noqa: E402
 from repro.compat import set_mesh  # noqa: E402
 from repro.models import transformer as T  # noqa: E402
+from repro.serve import serve_step  # noqa: E402
 from repro.serve.serve_step import make_decode, make_prefill  # noqa: E402
 from repro.serve.session import seed_cache  # noqa: E402
 
@@ -76,7 +78,10 @@ def run(cfg, params, batch, B, S, gen, data, model):
 
 def main(cases_path, out_dir):
     assert jax.device_count() == 4, jax.devices()
-    for arch, B, S, gen, meshes in json.load(open(cases_path)):
+    pick = serve_step.pick_layout
+    for arch, B, S, gen, meshes, *layout in json.load(open(cases_path)):
+        serve_step.pick_layout = (
+            (lambda cfg, mesh, _l=layout[0]: _l) if layout else pick)
         cfg = configs.get_smoke_config(arch).scaled(dtype="float32")
         params = unflatten(dict(np.load(f"{out_dir}/{arch}.weights.npz")))
         batch = {k: jnp.asarray(v) for k, v in

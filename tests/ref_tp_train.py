@@ -4,8 +4,9 @@
         PYTHONPATH=src python tests/ref_tp_train.py CASES.json OUT_DIR
 
 Runs in a process of its own, because JAX fixes its device count at
-start-up.  For each case [arch, [data, model], steps, opt, save] of
-CASES.json (the mesh over the first data·model of 4 host devices,
+start-up.  For each case [arch, [data, model], steps, opt, save(,
+layout)] of CASES.json (`layout`, when given, replaces `pick_layout`'s
+choice; the mesh over the first data·model of 4 host devices,
 built as tests/ref_tp.py builds it: a default `Mesh`, whose axes are
 auto) it loads the weights OUT_DIR/<arch>.weights.npz (the reference's
 param layout as flat key paths) and the batches
@@ -67,7 +68,11 @@ def run(cfg, params, batches, steps, opt, data, model, save_to=None):
 
 def main(cases_path, out_dir):
     assert jax.device_count() == 4, jax.devices()
-    for arch, (data, model), steps, opt, save in json.load(open(cases_path)):
+    pick = TS.pick_layout
+    for arch, (data, model), steps, opt, save, *layout in json.load(
+            open(cases_path)):
+        TS.pick_layout = ((lambda cfg, mesh, _l=layout[0]: _l) if layout
+                          else pick)
         cfg = configs.get_smoke_config(arch).scaled(dtype="float32")
         params = unflatten(dict(np.load(f"{out_dir}/{arch}.weights.npz")))
         raw = dict(np.load(f"{out_dir}/{arch}.train.npz"))

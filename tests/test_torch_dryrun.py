@@ -7,13 +7,16 @@ reference's (`repro.launch.dryrun`, `repro.roofline.hlo_cost`):
    subprocess);
  * on one device, the matmul FLOPs `OpCost` records of the port's
    prefill and train step are within 1% of `HloCost(...).flops()` of
-   the reference's compiled step, for four smoke families (whisper's
+   the reference's compiled step, for five smoke configs (whisper's
    prefill less the reference's second projection of the encoder
-   output to cross K/V, a designed difference, ROADMAP queue 3);
+   output to cross K/V, a designed difference, ROADMAP queue 3;
+   minitron-4b, whose full config's heads the model axis does not
+   divide);
  * on the production grid: `run_cell` at full size on `meta` writes the
    reference's JSON keys (less `raw_cost_*`) with collective bytes equal
-   to the ring-factored `tp.moved` deltas; a cell the port cannot run
-   fails; the graph cell on the CPU counts its stripe as the
+   to the ring-factored `tp.moved` deltas; whisper-base's prefill runs
+   under 'dp_replicated' with K4 on every head; `main` reports a cell
+   that fails; the graph cell on the CPU counts its stripe as the
    reference's oracle does.
 """
 import json
@@ -133,7 +136,8 @@ def _designed(arch, kind) -> float:
 
 @pytest.mark.parametrize("kind", ["prefill", "train"])
 @pytest.mark.parametrize("arch", ["qwen3-1.7b", "granite-moe-1b-a400m",
-                                  "mamba2-370m", "whisper-base"])
+                                  "mamba2-370m", "whisper-base",
+                                  "minitron-4b"])
 def test_matmul_flops_match_the_reference_hlo(arch, kind):
     pytest.importorskip("jax")
     ref = _reference_flops(arch, kind) - _designed(arch, kind)
@@ -189,15 +193,38 @@ def test_run_cell_on_the_production_grid(tmp_path, arch, shape, flash):
         assert per * flash == pytest.approx(k4, rel=1 / S_)
 
 
-def test_a_cell_the_port_cannot_run_fails(tmp_path):
-    # whisper-base's 8 heads do not divide the model axis of 16
-    with pytest.raises(ValueError, match="does not divide the attention"):
-        dryrun.run_cell("whisper-base", "prefill_32k", "single",
-                        str(tmp_path))
+def test_a_cell_the_port_cannot_run_fails(tmp_path, monkeypatch):
+    """whisper-base's 8 heads do not divide the model axis of 16 and its
+    state fits: `pick_layout` gives 'dp_replicated', and its prefill
+    runs on the production grid with K4 on every head, 18 calls (6
+    causal, 12 bidirectional) whose FLOPs are `flash_kernel_flops`'
+    "replicated over model" count.  `main` still reports a cell that
+    fails (one made to fail here): "N cells failed", a non-zero exit
+    and no file written."""
+    from repro_torch.parallel.sharding import pick_layout
+    from repro_torch.roofline.kernels import k4_bound
+
+    cfg, shape = configs.get_config("whisper-base"), SHAPES["prefill_32k"]
+    grid = make_production_grid()
+    assert pick_layout(cfg, grid) == "dp_replicated"
+    rec = dryrun.run_cell("whisper-base", "prefill_32k", "single",
+                          str(tmp_path / "ok"))
+    assert rec["kernel_calls"] == {"flash": 18}
+    S_, rows = shape.seq_len, shape.global_batch // grid.data
+    per = [k4_bound((rows * cfg.n_heads, rows * cfg.n_kv_heads, S_, S_,
+                     cfg.head_dim), causal).ops for causal in (True, False)]
+    assert 6 * per[0] + 12 * per[1] == pytest.approx(
+        dryrun.flash_kernel_flops(cfg, shape, grid), rel=1 / S_)
+
+    def broken(arch, *a, **kw):
+        raise ValueError(f"{arch} made to fail")
+
+    monkeypatch.setattr(dryrun, "lower_cell", broken)
+    out = tmp_path / "fail"
     with pytest.raises(SystemExit, match="1 cells failed"):
         dryrun.main(["--arch", "whisper-base", "--shape", "prefill_32k",
-                     "--out", str(tmp_path)])
-    assert not list(tmp_path.iterdir())
+                     "--out", str(out)])
+    assert not out.exists() or not list(out.iterdir())
 
 
 def test_graph_cell_counts_its_stripe(tmp_path):

@@ -39,10 +39,18 @@ def test_summary_equals_the_reference(trace_doc):
 
 
 def test_cli_summarizes_and_gates(trace_doc, tmp_path, capsys):
-    path, _ = trace_doc
+    """`--top 5` prints exactly the five rows `summarize` ranks first for
+    the same document (ranked by measured self-time, so which spans they
+    are varies with the load of the run that wrote the trace)."""
+    path, doc = trace_doc
     assert obs_main(["summarize", str(path), "--top", "5"]) == 0
-    out = capsys.readouterr().out
-    assert "engine.round" in out
+    out = capsys.readouterr().out.splitlines()
+    rows = summarize(doc)["rows"]
+    at = next(i for i, ln in enumerate(out) if ln.split()[:1] == ["span"])
+    printed = [ln.split()[0].rstrip("*") for ln in out[at + 1:at + 6]]
+    assert len(rows) > 5
+    assert printed == [r["name"] for r in rows[:5]]
+    assert out[at + 6].strip() == f"... {len(rows) - 5} more span names"
     bad = tmp_path / "bad.json"
     bad.write_text(json.dumps({"traceEvents": []}))
     assert obs_main(["summarize", str(bad)]) != 0

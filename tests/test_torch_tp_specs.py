@@ -202,10 +202,64 @@ def test_kv_weights_stay_whole_where_heads_do_not_divide():
 
 
 def test_heads_that_do_not_divide_raise():
+    """Heads that do not divide the model axis no longer raise: under
+    'tp2d' (forced: the smoke config fits, so `pick_layout` gives
+    'dp_replicated') each of the 4 model ranks holds minitron's wq /
+    wk / wv / wo whole and its quarter of the MLP and the vocabulary;
+    under 'dp_replicated' every leaf whole."""
     cfg = configs.get_smoke_config("minitron-4b")         # 6 heads
     grid = S.grid((1, 4), ("data", "model"))
-    with pytest.raises(ValueError, match="does not divide"):
-        shard_params(T.init(cfg, device="meta"), cfg, grid, model_rank=0)
+    assert S.heads_whole(cfg, grid) and S.pick_layout(cfg, grid) == (
+        "dp_replicated")
+    tree = T.init(cfg, seed=0)
+    for r in range(4):
+        part = shard_params(tree, cfg, grid, model_rank=r, layout="tp2d")
+        for i, lp in enumerate(part["layers"]):
+            whole = tree["layers"][i]
+            for w in ("wq", "wk", "wv", "wo"):
+                assert torch.equal(lp["attn"][w]["w"], whole["attn"][w]["w"])
+            for w, dim in (("gate", 1), ("up", 1), ("down", 0)):
+                assert torch.equal(lp["mlp"][w]["w"], whole["mlp"][w][
+                    "w"].chunk(4, dim)[r])
+        assert torch.equal(part["embed"]["w"],
+                           tree["embed"]["w"].chunk(4, 0)[r])
+        replicated = shard_params(tree, cfg, grid, model_rank=r)
+        assert all(torch.equal(a, b) for (_, a), (_, b) in
+                   zip(S.leaves(replicated), S.leaves(tree)))
+    assert S.kv_layout(cfg, 4, 32, grid, "tp2d") == "seq"
+    assert S.kv_layout(cfg, 4, 32, grid, "dp_replicated") == "whole"
+
+
+@pytest.mark.parametrize("shape,names", [((1, 3), ("data", "model")),
+                                         ((2, 3), ("data", "model")),
+                                         ((2, 16, 16),
+                                          ("pod", "data", "model"))])
+@pytest.mark.parametrize("batch", [1, 2, 6, 12, 32, 512])
+def test_dp_replicated_rows_follow_batch_specs(shape, names, batch):
+    """Under 'dp_replicated' a rank's rows are its block of the axes
+    `batch_specs` splits the batch over (every axis where they divide
+    it, else the DP axes), as rank order lays them out."""
+    spec = RS.batch_specs(
+        {"x": jax.ShapeDtypeStruct((batch, 4), np.int32)}, _mesh(shape, names),
+        "dp_replicated")["x"]
+    axes = spec[0] if spec else None
+    axes = (axes,) if isinstance(axes, str) else axes
+    size = int(np.prod(shape))
+    for rank in range(size):
+        g = S.Grid(tuple(names), tuple(shape), rank=rank)
+        lo, n = S.local_batch(batch, g, "dp_replicated")
+        if axes is None:
+            assert (lo, n) == (0, batch)
+            continue
+        ways = int(np.prod([dict(zip(names, shape))[a] for a in axes]))
+        if axes == tuple(names):
+            at = rank
+        elif axes == tuple(a for a in names if a != "model"):
+            at = g.data_rank
+        else:                      # "pod" alone: the port leaves it whole
+            assert (lo, n) == (0, batch)
+            continue
+        assert (lo, n) == (at * (batch // ways), batch // ways)
 
 
 def test_local_batch_follows_batch_specs():

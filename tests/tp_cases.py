@@ -35,8 +35,9 @@ def cfg_of(arch):
     return configs.get_smoke_config(arch).scaled(dtype="float32")
 
 
-def prompts(cfg, seed=1):
-    """numpy prompts for `cfg`'s family (the reference's input spec)."""
+def prompts(cfg, seed=1, B=B):
+    """numpy prompts of B rows for `cfg`'s family (the reference's
+    input spec)."""
     rng = np.random.default_rng(seed)
     if cfg.family == "vlm":
         return {"embeds": rng.normal(size=(B, S, cfg.d_model)).astype(
@@ -141,23 +142,28 @@ def load(out_dir, arch):
     return load_weights(out_dir, arch), batch
 
 
-def serve(cfg, params, batch, grid=None):
+def serve(cfg, params, batch, grid=None, layout=None):
     """The port's prefill and GEN greedy decode steps (float32 cache)
-    on the CPU, under `grid` or on one device: {"prefill", "decode",
-    "tokens"} as numpy."""
+    on the CPU, under `grid` (and `layout`, default `pick_layout`'s) or
+    on one device: {"prefill", "decode", "tokens"} as numpy."""
     from repro_torch.models import transformer as T
-    from repro_torch.parallel.sharding import kv_layout
+    from repro_torch.parallel.sharding import kv_layout, pick_layout
     from repro_torch.serve.serve_step import make_decode, make_prefill
     from repro_torch.serve.session import seed_cache
 
-    prefill = make_prefill(cfg, "cpu", q_chunk=0, grid=grid)
+    B = next(iter(batch.values())).shape[0]
+    prefill = make_prefill(cfg, "cpu", q_chunk=0, grid=grid, layout=layout)
     logits, pc = prefill(params, batch)
-    cache = T.init_cache(cfg, B, S + GEN, dtype=torch.float32, grid=grid)
+    cache = T.init_cache(cfg, B, S + GEN, dtype=torch.float32, grid=grid,
+                         layout=layout)
     off = 0
-    if grid is not None and kv_layout(cfg, B, S + GEN, grid) == "seq":
+    if grid is not None and kv_layout(
+            cfg, B, S + GEN, grid,
+            layout or pick_layout(cfg, grid)) == "seq":
         off = grid.model_rank * ((S + GEN) // grid.model)
     seed_cache(cache, pc, S, off)
-    decode = make_decode(cfg, "cpu", grid=grid, batch=B, max_seq=S + GEN)
+    decode = make_decode(cfg, "cpu", grid=grid, batch=B, max_seq=S + GEN,
+                         layout=layout)
     tok = logits.argmax(-1)[:, None]
     out = {"prefill": logits.numpy(), "tokens": [tok.numpy()], "decode": []}
     for i in range(GEN):
@@ -172,18 +178,18 @@ def serve(cfg, params, batch, grid=None):
 SESSION_ARCHS = ["granite-moe-1b-a400m", "jamba-v0.1-52b"]
 
 
-def session_run(arch, **kw):
-    """An `LMSession` of `arch`'s smoke config in float32 (batch 4, a
-    16-token prompt, 6 tokens): 2 decode steps, slot 1 evicted and a new
-    sequence admitted in its place, then decoding to the end.  Returns
-    every slot's tokens and the evicted row's."""
+def session_run(arch, batch=4, **kw):
+    """An `LMSession` of `arch`'s smoke config in float32 (`batch` rows,
+    a 16-token prompt, 6 tokens): 2 decode steps, slot 1 evicted and a
+    new sequence admitted in its place, then decoding to the end.
+    Returns every slot's tokens and the evicted row's."""
     from repro_torch import configs
     from repro_torch.serve.session import LMSession
 
     smoke = configs.get_smoke_config
     configs.get_smoke_config = lambda a: smoke(a).scaled(dtype="float32")
     try:
-        s = LMSession(arch, smoke=True, batch=4, prompt_len=S, gen=6,
+        s = LMSession(arch, smoke=True, batch=batch, prompt_len=S, gen=6,
                       device="cpu", **kw)
     finally:
         configs.get_smoke_config = smoke

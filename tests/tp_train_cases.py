@@ -34,11 +34,12 @@ EVERY_MESH = ["qwen3-1.7b", "granite-34b", "granite-moe-1b-a400m",
 cfg_of = C.cfg_of
 
 
-def batches(cfg, steps=STEPS):
-    """The port's SyntheticLM batches as numpy (float leaves in fp32)."""
+def batches(cfg, steps=STEPS, b=B):
+    """The port's SyntheticLM batches of b rows as numpy (float leaves in
+    fp32)."""
     from repro_torch.train.data import DataConfig, SyntheticLM
 
-    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=S, global_batch=B,
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=S, global_batch=b,
                                   seed=3), cfg)
     return [{k: (v.float() if v.is_floating_point() else v).numpy()
              for k, v in data.batch(i).items()} for i in range(steps)]
@@ -96,14 +97,14 @@ def finish_reference(procs):
     C.finish_reference(procs, timeout=DEADLINE_S)
 
 
-def make_step(cfg, grid=None):
+def make_step(cfg, grid=None, layout=None):
     from repro_torch.train import optimizer as O
     from repro_torch.train import train_step as TS
 
     return TS.make_train_step(
         cfg, O.AdamWConfig(**OPT),
         TS.TrainOptions(remat=True, q_chunk=0, loss_chunk=0), device="cpu",
-        grid=grid)
+        grid=grid, layout=layout)
 
 
 def one_device(out_dir, arch):
