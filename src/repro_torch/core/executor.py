@@ -48,7 +48,6 @@ import json
 import math
 import time
 from dataclasses import dataclass, replace
-from functools import partial
 from typing import NamedTuple
 
 import numpy as np
@@ -162,7 +161,7 @@ class CountState:
 # single-shard counting function (eager torch on the arrays' device)
 # --------------------------------------------------------------------------
 def _make_count_fn(plan: MatchingPlan, W: int, iters: int,
-                   cfg: ExecutorConfig, *, device, level_cb=None):
+                   cfg: ExecutorConfig, *, device):
     """Returns count(indptr, degrees, flat, labs, v0) -> (count, needed),
     both 0-d int64 tensors on `device`.  `labs` = (vlabels [n+1],
     lab_starts [n+1, L], lab_lens [n+1, L], lab_flat) for labeled plans,
@@ -171,9 +170,12 @@ def _make_count_fn(plan: MatchingPlan, W: int, iters: int,
     `W` = candidate-window width (graph max degree).  `degrees` must be
     padded to [n+1] with 0 at index n (sentinel).
 
-    `level_cb` hooks per-level observability: every schedule level runs
-    as ``level_cb(i, thunk)`` (`i="iep"` for the IEP tail); the Matcher
-    passes one only on the `--trace-sync` path."""
+    Each schedule level, and the IEP tail (`level="iep"`), runs in an
+    `executor.level` span; a tracer with `sync` (`--trace-sync`) fences
+    each with a device synchronize, so the span is the level's device
+    time, and notes the level's `needed` and surviving `frontier`.
+    Every host read of a device value is a `device.sync` span, every K1
+    call a `kernel.<entry>` span."""
     n = plan.n
     depth = plan.depth
     C = cfg.capacity
@@ -229,6 +231,14 @@ def _make_count_fn(plan: MatchingPlan, W: int, iters: int,
         ((emb column, dir), ...); dir ∈ {+1: >, -1: <, 0: !=}."""
         return tuple(plan.restr[i]) + tuple((j, 0) for j in plan.neqs[i])
 
+    def k1_span(entry, mode, rows, preds, width):
+        """The span `kernel.<entry>` of one K1 call, with its shapes.
+        The caller opens it around the entry, so that a profiler range
+        opened inside the entry stays the innermost around K1's
+        launches and keeps their device time."""
+        return get_tracer().span("kernel." + entry, mode=mode, rows=rows,
+                                 preds=preds, width=width)
+
     def expand_core(emb, base, own, preds, extras, indptr, degrees, flat,
                     width, *, want_counts=False, labs=None, label=None):
         """THE per-level admissibility core over rows that are all live
@@ -241,10 +251,12 @@ def _make_count_fn(plan: MatchingPlan, W: int, iters: int,
         if use_kernel and len(preds) > 1 and want_counts:
             (starts, lens), kw = kernel_args(emb, preds, extras, indptr,
                                              degrees)
-            return ops.level_expand_rows(
-                *window_source(flat, indptr, degrees, base, labs=labs,
-                               label=label),
-                flat, starts, lens, own, width=width, window=W, **kw)
+            with k1_span("level_expand_rows", "count", emb.shape[0],
+                         len(preds), width):
+                return ops.level_expand_rows(
+                    *window_source(flat, indptr, degrees, base, labs=labs,
+                                   label=label),
+                    flat, starts, lens, own, width=width, window=W, **kw)
         cand, mask = gather_window(flat, indptr, degrees, base, width,
                                    labs=labs, label=label)
         if len(preds) > 1:
@@ -286,11 +298,14 @@ def _make_count_fn(plan: MatchingPlan, W: int, iters: int,
         if use_kernel and len(preds) > 1:
             (starts, lens), kw = kernel_args(emb, preds, extras, indptr,
                                              degrees)
-            ops.level_expand_compact(
-                *window_source(flat, indptr, degrees, base, labs=labs,
-                               label=label),
-                flat, starts, lens, own, rows=idx, offset=offset,
-                parent=parent, newcol=newcol, width=width, window=W, **kw)
+            with k1_span("level_expand_compact", "mask", idx.shape[0],
+                         len(preds), width):
+                ops.level_expand_compact(
+                    *window_source(flat, indptr, degrees, base, labs=labs,
+                                   label=label),
+                    flat, starts, lens, own, rows=idx, offset=offset,
+                    parent=parent, newcol=newcol, width=width, window=W,
+                    **kw)
             return
         cand, mask = expand_core(emb, base, None, preds, extras, indptr,
                                  degrees, flat, width, labs=labs,
@@ -307,13 +322,16 @@ def _make_count_fn(plan: MatchingPlan, W: int, iters: int,
         sel[out_idx] = arangeC
         return sel[:cap], total
 
-    def row_slices(sel_idx, sub_total, cap, width):
+    def row_slices(sel_idx, sub_total, cap, width, level, bucket):
         """The live rows of a compacted sub-frontier (the reference's
         `sub_valid` prefix, min(sub_total, cap) rows), in slices of at
         most SLICE_ENTRIES candidates.  Reading the row count is a host
         sync; in exchange only live rows are ever expanded, so the work
         and memory of a level follow the frontier, not the capacity."""
-        rows = min(int(sub_total), cap)
+        with get_tracer().span("device.sync", site="slice_rows",
+                               level=level, bucket=bucket) as sp:
+            rows = min(int(sub_total), cap)
+            sp.set(rows=rows)
         step = max(SLICE_ENTRIES // max(width, 1), 1)
         for r0 in range(0, rows, step):
             yield sel_idx[r0:min(rows, r0 + step)]
@@ -352,7 +370,7 @@ def _make_count_fn(plan: MatchingPlan, W: int, iters: int,
                 rowmask &= db <= width
             sel_idx, sub_total = select_rows(rowmask, cap)
             needed = torch.maximum(needed, scaled_need(sub_total, cap))
-            for idx in row_slices(sel_idx, sub_total, cap, width):
+            for idx in row_slices(sel_idx, sub_total, cap, width, i, bi):
                 sub_emb = emb[idx][:, :i]
                 sub_base = base_all[idx]
                 if last_enum:
@@ -380,10 +398,12 @@ def _make_count_fn(plan: MatchingPlan, W: int, iters: int,
         prefix vertices ride along as negatively-weighted columns
         (`neg`), so the signed popcount is raw − corr."""
         us = sub_emb[:, list(U)].T.contiguous()                   # [P, B]
-        signed = ops.level_expand_rows(
-            *window_source(flat, indptr, degrees, sub_base), flat,
-            indptr[us], degrees[us], sub_own, None, sub_emb, width=width,
-            window=W)
+        with k1_span("level_expand_rows", "signed", sub_emb.shape[0],
+                     len(U), width):
+            signed = ops.level_expand_rows(
+                *window_source(flat, indptr, degrees, sub_base), flat,
+                indptr[us], degrees[us], sub_own, None, sub_emb,
+                width=width, window=W)
         return signed.to(I64)
 
     def iep_value(emb, valid, indptr, degrees, flat):
@@ -403,7 +423,8 @@ def _make_count_fn(plan: MatchingPlan, W: int, iters: int,
                 sel_idx, sub_total = select_rows(rowmask, cap)
                 needed_extra = torch.maximum(needed_extra,
                                              scaled_need(sub_total, cap))
-                for idx in row_slices(sel_idx, sub_total, cap, width):
+                for idx in row_slices(sel_idx, sub_total, cap, width,
+                                      "iep", bi):
                     sub_emb = emb[idx]
                     sub_base = base[idx]
                     if use_kernel:
@@ -434,7 +455,18 @@ def _make_count_fn(plan: MatchingPlan, W: int, iters: int,
             val = val + term
         return torch.where(valid, val, 0), needed_extra
 
+    def fence(sp, needed, new_valid=None):
+        """`--trace-sync`: wait for the level's device work, then note
+        its capacity demand and surviving frontier on its span."""
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        sp.set(needed=int(needed))
+        if new_valid is not None:
+            sp.set(frontier=int(new_valid.sum()))
+
     def count(indptr, degrees, flat, labs, v0):
+        tr = get_tracer()
+        fenced = tr.enabled and tr.sync
         emb = v0[:, None].to(I32)                          # [T, 1]
         valid = v0 < (indptr.shape[0] - 1)
         if vlabels[0] is not None:
@@ -447,19 +479,21 @@ def _make_count_fn(plan: MatchingPlan, W: int, iters: int,
             valid = torch.nn.functional.pad(valid, (0, C - T))
         needed = torch.tensor(T, dtype=I64, device=dev)
         for i in range(1, depth):
-            thunk = partial(expand_level, i, emb, valid, needed,
-                            indptr, degrees, flat, labs)
-            out, new_valid, needed = (
-                thunk() if level_cb is None else level_cb(i, thunk))
+            with tr.span("executor.level", level=i) as sp:
+                out, new_valid, needed = expand_level(
+                    i, emb, valid, needed, indptr, degrees, flat, labs)
+                if fenced:
+                    fence(sp, needed, new_valid)
             if new_valid is None:          # last enumeration level
                 return out, needed
             emb, valid = out, new_valid
         if plan.iep is None:
             # depth-1 == 0: single-vertex pattern — count valid v0 rows
             return valid.sum(dtype=I64), needed
-        iep_thunk = partial(iep_value, emb, valid, indptr, degrees, flat)
-        vals, need2 = (iep_thunk() if level_cb is None
-                       else level_cb("iep", iep_thunk))
+        with tr.span("executor.level", level="iep") as sp:
+            vals, need2 = iep_value(emb, valid, indptr, degrees, flat)
+            if fenced:
+                fence(sp, need2)
         return vals.sum(), torch.maximum(needed, need2)
 
     return count
@@ -537,7 +571,6 @@ class Matcher:
         self.device = resolve_device(device)
         self._W = max(graph.max_degree, 1)
         self._fns: dict[int, object] = {}     # capacity -> count fn
-        self._traced_fns: dict[int, object] = {}  # --trace-sync twins
         if arrays is None:
             arrays = device_graph(graph, self.device)
         if arrays.indptr.device != self.device:
@@ -555,44 +588,12 @@ class Matcher:
         a = self._arrays
         return (a.indptr, a.degrees, a.flat, a.labs)
 
-    def _make(self, capacity: int, level_cb=None):
-        return _make_count_fn(
-            self.plan, self._W, _bs_iters(self._W),
-            replace(self.cfg, capacity=capacity), device=self.device,
-            level_cb=level_cb)
-
     def _fn(self, capacity: int):
         if capacity not in self._fns:
-            self._fns[capacity] = self._make(capacity)
+            self._fns[capacity] = _make_count_fn(
+                self.plan, self._W, _bs_iters(self._W),
+                replace(self.cfg, capacity=capacity), device=self.device)
         return self._fns[capacity]
-
-    def _sync(self):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-
-    def _level_cb(self, i, thunk):
-        """`--trace-sync` per-level hook: one `executor.level` span per
-        schedule position, fenced with a device synchronize so the span
-        duration is real device time, annotated with the surviving
-        frontier size and the level's capacity demand."""
-        with get_tracer().span("executor.level", level=i) as sp:
-            out = thunk()
-            self._sync()
-            if isinstance(out, tuple) and len(out) == 3:
-                _, new_valid, needed = out
-                sp.set(needed=int(needed))
-                if new_valid is not None:
-                    sp.set(frontier=int(new_valid.sum()))
-        return out
-
-    def _traced_fn(self, capacity: int):
-        """Twin of :meth:`_fn` with the per-level span hook — used only
-        when the tracer asks for device-fenced levels (`--trace-sync`):
-        the fencing serializes the pipeline."""
-        if capacity not in self._traced_fns:
-            self._traced_fns[capacity] = self._make(
-                capacity, level_cb=self._level_cb)
-        return self._traced_fns[capacity]
 
     def _v0(self, s: int, e: int, width: int) -> torch.Tensor:
         v0 = torch.full((max(width, e - s),), self.graph.n, dtype=I32,
@@ -611,14 +612,14 @@ class Matcher:
         width = min(chunk or self.cfg.capacity, self.cfg.capacity)
         v0 = torch.full((width,), self.graph.n, dtype=I32, device=self.device)
         _, needed = self._fn(self.cfg.capacity)(*self._call_args(), v0)
-        int(needed)
+        with get_tracer().span("device.sync", site="warmup"):
+            int(needed)
 
     def release(self) -> None:
         """Drop every count function and device-tensor reference (the
         resident graph shared via ``arrays=`` stays alive at its owner).
         The matcher is unusable afterwards."""
         self._fns.clear()
-        self._traced_fns.clear()
         self._arrays = None
 
     def rebind(self, arrays, *, graph=None) -> None:
@@ -651,7 +652,13 @@ class Matcher:
     def count(self, *, chunk: int | None = None) -> CountResult:
         """Chunked outer loop; a chunk that overflows capacity is bisected
         and retried.  A single root that still overflows escalates to a
-        doubled capacity so the count stays exact."""
+        doubled capacity so the count stays exact.
+
+        Each dispatch's span notes what it came to (`outcome`):
+        `counted`, `split` (bisected), `escalated` (re-queued at double
+        capacity) or `overflowed` (a single root at MAX_CAPACITY, counted
+        and flagged); the count's span notes the `discarded` ones, split
+        and escalated, whose work yielded no count."""
         _, out = self.count_partial(chunk=chunk)
         return out
 
@@ -686,36 +693,42 @@ class Matcher:
                 buckets=cfg.fingerprint(), sync=trace_sync,
                 resumed=state.dispatches > 0) as csp:
             spans = state.spans
-            segment = 0
+            segment = discarded = 0
             while spans and (budget is None or segment < budget):
                 s, e, cap = spans.pop()
                 self._capacity = max(self._capacity, cap)
                 width = min(chunk, cap)
                 with tr.span("executor.dispatch", v0_start=s, v0_end=e,
                              capacity=cap, frontier=e - s) as dsp:
-                    fn = (self._traced_fn(cap) if trace_sync
-                          else self._fn(cap))
-                    cnt, needed = fn(*call_args, self._v0(s, e, width))
+                    cnt, needed = self._fn(cap)(*call_args,
+                                                self._v0(s, e, width))
                     # int() waits for the device, so the dispatch span
                     # covers real compute time
-                    needed = int(needed)
-                    dsp.set(needed=needed)
-                segment += 1
-                state.dispatches += 1
-                state.max_needed = max(state.max_needed, needed)
-                if needed > cap:
-                    if e - s > 1:
+                    with tr.span("device.sync", site="dispatch_needed"):
+                        needed = int(needed)
+                    if needed <= cap:
+                        outcome = "counted"
+                    elif e - s > 1:
+                        outcome = "split"
                         mid = (s + e) // 2
                         spans += [(s, mid, cap), (mid, e, cap)]
                     elif cap < self.MAX_CAPACITY:
-                        spans.append((s, e, cap * 2))   # escalate
+                        outcome = "escalated"
+                        spans.append((s, e, cap * 2))
                     else:
-                        state.overflowed = True  # cannot split/grow further
-                        state.total += int(cnt)
-                    continue
-                state.total += int(cnt)
-            csp.set(dispatches=segment, max_needed=state.max_needed,
-                    preempted=bool(spans))
+                        outcome = "overflowed"  # cannot split/grow further
+                        state.overflowed = True
+                    if outcome in ("counted", "overflowed"):
+                        with tr.span("device.sync", site="dispatch_count"):
+                            state.total += int(cnt)
+                    else:
+                        discarded += 1
+                    dsp.set(needed=needed, outcome=outcome)
+                segment += 1
+                state.dispatches += 1
+                state.max_needed = max(state.max_needed, needed)
+            csp.set(dispatches=segment, discarded=discarded,
+                    max_needed=state.max_needed, preempted=bool(spans))
         if spans:
             return state, None
         return state, CountResult(count=state.total // self.plan.iep_divisor,
@@ -853,7 +866,8 @@ class ShardedMatcher:
             ops.prepare(self.device)
         _, needed, _ = self._pass(self.cfg.capacity,
                                   torch.full_like(self._v0, self.graph.n))
-        int(needed)
+        with get_tracer().span("device.sync", site="warmup"):
+            int(needed)
 
     def release(self) -> None:
         """Drop every count function and device-tensor reference,
@@ -890,29 +904,47 @@ class ShardedMatcher:
         self._arrays = arrays
 
     def count(self) -> CountResult:
+        """Passes until one fits its capacity; each pass's span notes
+        its `outcome` as `Matcher.count`'s dispatches do: `escalated`
+        (rerun at a doubled capacity, so discarded), `counted` or
+        `overflowed` (at MAX_CAPACITY, counted and flagged)."""
         if self._arrays is None:
             raise RuntimeError("matcher was released (evicted from cache)")
         tr = get_tracer()
         # start from the last sufficient capacity, so a repeat skips the
         # undersized passes
         capacity = self._capacity
+        discarded = 0
         with tr.span("executor.count", depth=self.plan.depth,
                      sharded=True, chunk=self.chunk) as csp:
             while True:
                 with tr.span("executor.dispatch", capacity=capacity,
                              frontier=self.world * self._per) as dsp:
                     cnt, needed, local = self._pass(capacity, self._v0)
-                    needed = int(needed)
-                    dsp.set(needed=needed, local_seconds=local)
+                    with tr.span("device.sync", site="dispatch_needed"):
+                        needed = int(needed)
+                    if needed <= capacity:
+                        outcome = "counted"
+                    elif capacity >= Matcher.MAX_CAPACITY:
+                        outcome = "overflowed"
+                    else:
+                        outcome = "escalated"
+                    if outcome != "escalated":
+                        with tr.span("device.sync", site="dispatch_count"):
+                            total = int(cnt)
+                    dsp.set(needed=needed, local_seconds=local,
+                            outcome=outcome)
                 self.passes += 1
                 self.local_seconds += local
-                if needed <= capacity or capacity >= Matcher.MAX_CAPACITY:
+                if outcome != "escalated":
                     break
+                discarded += 1
                 while capacity < min(needed, Matcher.MAX_CAPACITY):
                     capacity *= 2
-            csp.set(max_needed=needed, capacity=capacity)
+            csp.set(max_needed=needed, capacity=capacity,
+                    discarded=discarded)
         self._capacity = capacity
-        return CountResult(count=int(cnt) // self.plan.iep_divisor,
+        return CountResult(count=total // self.plan.iep_divisor,
                            overflowed=needed > capacity, max_needed=needed)
 
 

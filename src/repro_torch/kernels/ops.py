@@ -39,6 +39,7 @@ import contextlib
 
 import torch
 
+from ..obs import get_tracer
 from ..roofline import op_cost as _op_cost
 from ..roofline.kernels import (bound_of, k4_bound, membership_bound,
                                 rows_bound_of)
@@ -288,9 +289,12 @@ def _check_rows(csrc, cstart, clen, flat, starts, lens, own, extra, dirs,
 
 def _check_own(own, P: int, B: int) -> None:
     """The value check of the row-sourced entries: own's range, read on
-    the host once (a sync), where `own` is given."""
+    the host once (a sync: the span `device.sync` at `k1_own`), where
+    `own` is given."""
     if own is not None and B:
-        lo, hi = (int(v) for v in torch.aminmax(own))
+        lo_hi = torch.aminmax(own)
+        with get_tracer().span("device.sync", site="k1_own", rows=B):
+            lo, hi = (int(v) for v in lo_hi)
         if lo < -1 or hi >= P:
             raise ValueError(f"own outside [-1, {P}): [{lo}, {hi}]")
 

@@ -1,4 +1,4 @@
-"""Tracer — nested structured spans with Perfetto/JSONL export.
+"""Tracer — nested structured spans with Perfetto export.
 
 One process-wide span timeline (DESIGN.md §7): every subsystem opens
 spans through the module-level tracer —
@@ -29,9 +29,18 @@ Design constraints, in order:
 The exporter writes the Chrome trace-event format (`ph: "X"` complete
 events with microsecond timestamps) wrapped as {"traceEvents": [...]},
 which both `chrome://tracing` and https://ui.perfetto.dev load
-directly; `export_jsonl` writes one span record per line for ad-hoc
-`jq`-style analysis.  The reference package's `obs summarize` command reads the
+directly.  The reference package's `obs summarize` command reads the
 same file and prints the self-time breakdown.
+
+ONE CLOCK WITH THE PROFILER.  Durations are read on the monotonic
+`perf_counter_ns`; span starts (`t0_ns` in the records, `ts` in the
+export) are put on the clock `torch.profiler` stamps its host events
+with, the wall clock's nanoseconds since the Unix epoch, through one
+pair of readings taken when the tracer is made.  A span and a
+`record_function` range opened together start at the same instant in
+both traces: `prof.export_chrome_trace()` writes its `ts` relative to
+its `baseTimeNanoseconds`, so add that base (in µs) to its events to
+lay them beside a `--trace` export on one Perfetto timeline.
 """
 from __future__ import annotations
 
@@ -165,7 +174,12 @@ class Tracer:
         self.sync = sync
         self.max_spans = max_spans
         self.dropped = 0
-        self.epoch_ns = time.perf_counter_ns()
+        # perf_counter_ns() - epoch_ns is the profiler's clock (wall ns):
+        # one pair of readings, the monotonic one at the wall read's
+        # midpoint
+        p0 = time.perf_counter_ns()
+        wall = time.time_ns()
+        self.epoch_ns = (p0 + time.perf_counter_ns()) // 2 - wall
         self._ids = itertools.count(1)
         self._lock = threading.Lock()
         self._local = threading.local()
@@ -245,14 +259,6 @@ class Tracer:
         with open(path, "w") as f:
             json.dump(doc, f, default=str)
         return len(events)
-
-    def export_jsonl(self, path: str) -> int:
-        """One span record per line (raw ns timestamps + attrs)."""
-        spans = self.spans()
-        with open(path, "w") as f:
-            for s in spans:
-                f.write(json.dumps(s, default=str) + "\n")
-        return len(spans)
 
 
 def _from_env() -> Tracer:

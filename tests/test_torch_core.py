@@ -153,17 +153,27 @@ def test_graph_from_arrays_rejects_inconsistent_degrees():
 
 
 # Copied modules must stay equal to their originals: same code once
-# docstrings are set aside (the copies' docstrings name the port).
+# docstrings are set aside (the copies' docstrings name the port), and
+# once the methods the port changed on purpose are set aside in both.
 COPIES = ["core/pattern.py", "core/restrictions.py", "core/schedule.py",
           "core/iep.py", "core/plan.py", "core/perf_model.py",
           "core/config_search.py", "core/oracle.py", "graph/datasets.py",
           "configs/graphpi.py", "query/canon.py", "obs/metrics.py",
           "obs/trace.py", "analysis/findings.py", "analysis/soundness.py",
           "live/epoch.py", "live/compaction.py", "live/overlay.py"]
+# The port's tracer pairs its clock with the profiler's when it is made
+# (tests/test_torch_obs_trace.py) and has no JSONL export.
+DEPARTURES = {"obs/trace.py": {("Tracer", "__init__"),
+                               ("Tracer", "export_jsonl")}}
 
 
-def _code_dump(path: pathlib.Path) -> str:
+def _code_dump(path: pathlib.Path, departures=frozenset()) -> str:
     tree = ast.parse(path.read_text())
+    for cls in tree.body:
+        if isinstance(cls, ast.ClassDef):
+            cls.body = [f for f in cls.body if not (
+                isinstance(f, ast.FunctionDef)
+                and (cls.name, f.name) in departures)]
     for node in ast.walk(tree):
         body = getattr(node, "body", None)
         if (isinstance(body, list) and body
@@ -176,8 +186,9 @@ def _code_dump(path: pathlib.Path) -> str:
 
 @pytest.mark.parametrize("rel", COPIES)
 def test_copy_matches_original(rel):
-    assert (_code_dump(SRC / "repro_torch" / rel)
-            == _code_dump(SRC / "repro" / rel))
+    away = DEPARTURES.get(rel, frozenset())
+    assert (_code_dump(SRC / "repro_torch" / rel, away)
+            == _code_dump(SRC / "repro" / rel, away))
 
 
 def test_graph_view_matches_original():

@@ -192,10 +192,13 @@ def test_config_fingerprint_names_the_kernel_facet():
     assert "kernel=0" in tx.ExecutorConfig(use_kernel=False).fingerprint()
 
 
-def test_trace_sync_emits_level_spans():
+@pytest.mark.parametrize("sync", [True, False])
+def test_trace_sync_emits_level_spans(sync):
+    """Levels always have spans; only `--trace-sync` fences them and
+    notes each level's `needed` and surviving `frontier`."""
     plan = _plan(PATTERNS["P1"], False)
     old = get_tracer()
-    tr = set_tracer(Tracer(enabled=True, sync=True))
+    tr = set_tracer(Tracer(enabled=True, sync=sync))
     try:
         got = _port("er48", plan, "kernel", 1 << 10, None).count()
     finally:
@@ -205,6 +208,119 @@ def test_trace_sync_emits_level_spans():
     dispatches = names.count("executor.dispatch")
     assert names.count("executor.level") == (plan.depth - 1) * dispatches
     assert "executor.dispatch" in names and "executor.count" in names
+    levels = [s["attrs"] for s in tr.spans() if s["name"] == "executor.level"]
+    if sync:
+        assert all("needed" in a for a in levels)
+        assert sum("frontier" in a for a in levels) == (
+            plan.depth - 2) * dispatches
+    else:
+        assert not any({"needed", "frontier"} & set(a) for a in levels)
+
+
+def _dispatch_of(spans):
+    """{span id: id of the `executor.dispatch` span it lies in, or None}
+    by the records' parent links."""
+    by_id = {s["id"]: s for s in spans}
+
+    def up(s):
+        while s is not None and s["name"] != "executor.dispatch":
+            s = by_id.get(s["parent"])
+        return None if s is None else s["id"]
+
+    return {s["id"]: up(by_id.get(s["parent"])) for s in spans}
+
+
+K1_ENTRIES = ("level_expand_rows", "level_expand_compact")
+
+
+@pytest.mark.parametrize("path", PATHS)
+def test_dispatch_spans_say_what_each_dispatch_came_to(path, monkeypatch):
+    """A P1 count at capacity 128 over two buckets, which splits and
+    escalates: every dispatch notes its outcome, the count its discarded
+    dispatches; each bucket's row count is one `device.sync` a level and
+    dispatch; K1's spans lie in dispatches and name each call's rows,
+    and each is open around its entry (so that a profiler range opened
+    inside the entry is the innermost around K1's launches)."""
+    import collections
+
+    plan = _plan(PATTERNS["P1"], False)
+    calls, around = [], []
+    for name in K1_ENTRIES:
+        real = getattr(tx.ops, name)
+
+        def entry(*a, _real=real, _name=name, **kw):
+            calls.append(a[1].shape[0])           # cstart: [B]
+            around.append(get_tracer()._stack()[-1].name == "kernel." + _name)
+            return _real(*a, **kw)
+
+        monkeypatch.setattr(tx.ops, name, entry)
+    old = get_tracer()
+    tr = set_tracer(Tracer(enabled=True))
+    try:
+        got = _port("er48", plan, path, 128, BUCKETS).count()
+    finally:
+        set_tracer(old)
+    assert got.count == _oracle_count("er48", plan.pattern)
+    spans = tr.spans()
+    by = collections.defaultdict(list)
+    for s in spans:
+        by[s["name"]].append(s)
+    disp, (cnt,) = by["executor.dispatch"], by["executor.count"]
+    outcomes = collections.Counter(s["attrs"]["outcome"] for s in disp)
+    assert sum(outcomes.values()) == cnt["attrs"]["dispatches"] == len(disp)
+    assert outcomes["split"] and outcomes["escalated"]
+    assert cnt["attrs"]["discarded"] == (outcomes["split"]
+                                         + outcomes["escalated"])
+    assert set(outcomes) <= {"counted", "split", "escalated"}
+
+    inside = _dispatch_of(spans)
+    sites = collections.defaultdict(collections.Counter)
+    for s in by["device.sync"]:
+        assert inside[s["id"]] is not None
+        sites[s["attrs"]["site"]][inside[s["id"]]] += 1
+    buckets = len(BUCKETS)
+    assert all(sites["slice_rows"][d["id"]] == (plan.depth - 1) * buckets
+               for d in disp)
+    assert all(sites["dispatch_needed"][d["id"]] == 1 for d in disp)
+    assert sum(sites["dispatch_count"].values()) == outcomes["counted"]
+    k1 = [s for s in spans if s["name"].startswith("kernel.")]
+    if path == "portable":
+        assert not k1 and not calls and not sites["k1_own"]
+        return
+    assert k1 and all(inside[s["id"]] is not None for s in k1)
+    assert [s["attrs"]["rows"] for s in k1] == calls
+    assert all(around)
+    assert {s["name"] for s in k1} == {"kernel." + n for n in K1_ENTRIES}
+    assert sum(sites["k1_own"].values()) == len(k1)
+
+
+def test_a_disabled_tracer_records_nothing_over_a_count(monkeypatch):
+    """Every span site of a count, the chunk loop's, the levels', the
+    syncs' and K1's, gets the shared no-op from a disabled tracer."""
+    from repro_torch.obs import trace
+
+    plan = _plan(PATTERNS["P1"], False)
+    tr = Tracer(enabled=False)
+    seen = []
+
+    def spy(name, **attrs):
+        seen.append((name, Tracer.span(tr, name, **attrs)))
+        return seen[-1][1]
+
+    monkeypatch.setattr(tr, "span", spy)
+    old = get_tracer()
+    set_tracer(tr)
+    try:
+        got = _port("er48", plan, "kernel", 128, BUCKETS).count()
+    finally:
+        set_tracer(old)
+    assert got.count == _oracle_count("er48", plan.pattern)
+    assert {n for n, _ in seen} == {
+        "executor.count", "executor.dispatch", "executor.level",
+        "device.sync", "kernel.level_expand_rows",
+        "kernel.level_expand_compact"}
+    assert all(sp is trace._NOP for _, sp in seen)
+    assert len(tr) == 0 and tr.spans() == []
 
 
 def test_release_and_rebind():

@@ -35,6 +35,7 @@ from repro_torch.core.config_search import (
 )
 from repro_torch.core.plan import build_plan, plan_to_dict
 from repro_torch.graph.datasets import named_dataset
+from repro_torch.obs import Tracer, get_tracer, set_tracer
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PATHS = ("portable", "kernel")
@@ -93,6 +94,22 @@ def _raises(fn, exc):
     return None
 
 
+def _traced_count(m):
+    """`m.count()` under an enabled tracer: (result, [each pass's
+    `outcome`], the count span's `discarded`)."""
+    old = get_tracer()
+    tr = set_tracer(Tracer(enabled=True))
+    try:
+        r = m.count()
+    finally:
+        set_tracer(old)
+    spans = tr.spans()
+    (count,) = [s for s in spans if s["name"] == "executor.count"]
+    return r, [s["attrs"]["outcome"] for s in spans
+               if s["name"] == "executor.dispatch"], count["attrs"][
+                   "discarded"]
+
+
 def _checks(group, rank, graphs):
     """Ceiling overflow, rebind refusals and the same-program check, on
     every rank of a world of 2."""
@@ -104,10 +121,11 @@ def _checks(group, rank, graphs):
     try:
         m = tx.ShardedMatcher(g, p2, group, device="cpu",
                               cfg=tx.ExecutorConfig(capacity=4096))
-        r = m.count()
+        r, outcomes, discarded = _traced_count(m)
     finally:
         tx.Matcher.MAX_CAPACITY = ceiling
     out["ceiling"] = [r.overflowed, r.max_needed, m._capacity, m.passes]
+    out["ceiling_outcomes"] = [outcomes, discarded]
 
     m = tx.ShardedMatcher(g, p1, group, device="cpu",
                           cfg=tx.ExecutorConfig(capacity=1 << 15))
@@ -153,10 +171,10 @@ def _count_rank(rank, world, rdv, out_dir):
             m = tx.ShardedMatcher(
                 g, plan, group, device="cpu", cfg=tx.ExecutorConfig(
                     capacity=case[6], use_kernel=path == "kernel"))
-            r = m.count()
+            r, outcomes, discarded = _traced_count(m)
             got = {"count": r.count, "max_needed": r.max_needed,
                    "overflowed": r.overflowed, "capacity": m._capacity,
-                   "passes": m.passes}
+                   "passes": m.passes, "outcomes": [outcomes, discarded]}
             if m.passes > 1:
                 again = m.count()
                 got["repeat"] = [again.count, again.max_needed,
@@ -247,12 +265,21 @@ def test_plans_and_stripes_equal_reference(runs, cid, world):
 
 def test_escalation_reaches_past_the_first_pass(runs):
     """At capacity 4,096 P1 and P2 need whole-pass doubling on one rank
-    (so the repeat above ran), and every rank reports the same passes."""
+    (so the repeat above ran), and every rank reports the same passes;
+    each pass's span says it escalated, but the last, which counted."""
     _, port = runs
     for cid in ("P1", "P2"):
         passes = {r[cid]["paths"][p]["passes"] for r in port[1]
                   for p in PATHS}
         assert len(passes) == 1 and passes.pop() > 1, cid
+    for world, ranks in port.items():
+        for rank in ranks:
+            for cid, rec in rank.items():
+                for got in rec.get("paths", {}).values():
+                    n = got["passes"]
+                    assert got["outcomes"] == [
+                        ["escalated"] * (n - 1) + ["counted"], n - 1], (
+                            world, cid, got)
 
 
 def test_overflow_past_the_ceiling_is_reported(runs):
@@ -261,6 +288,8 @@ def test_overflow_past_the_ceiling_is_reported(runs):
         overflowed, needed, capacity, passes = rank["_checks"]["ceiling"]
         assert overflowed and capacity == 8192 and needed > capacity
         assert passes == 2                  # 4,096, then the ceiling
+        assert rank["_checks"]["ceiling_outcomes"] == [
+            ["escalated", "overflowed"], 1]
 
 
 def test_rebind_refusals(runs):
