@@ -162,18 +162,27 @@ class CountState:
 # --------------------------------------------------------------------------
 def _make_count_fn(plan: MatchingPlan, W: int, iters: int,
                    cfg: ExecutorConfig, *, device):
-    """Returns count(indptr, degrees, flat, labs, v0) -> (count, needed),
-    both 0-d int64 tensors on `device`.  `labs` = (vlabels [n+1],
-    lab_starts [n+1, L], lab_lens [n+1, L], lab_flat) for labeled plans,
-    else None.
+    """Returns count(indptr, degrees, flat, labs, v0, *,
+    discard_overflow=False) -> (count, needed), both 0-d int64 tensors
+    on `device`.  `labs` = (vlabels [n+1], lab_starts [n+1, L],
+    lab_lens [n+1, L], lab_flat) for labeled plans, else None.
 
     `W` = candidate-window width (graph max degree).  `degrees` must be
     padded to [n+1] with 0 at index n (sentinel).
 
+    `discard_overflow` says that the caller throws the count away when
+    `needed` exceeds the capacity (a dispatch it will split or rerun at
+    a larger capacity).  The last enumeration level's demand is known
+    before that level expands a row, so `needed` is final then; if it
+    overflows, the level's row slices (its gathers and K1 count calls)
+    are skipped and `count` is None.  `needed` is exact either way; an
+    IEP tail is never skipped.
+
     Each schedule level, and the IEP tail (`level="iep"`), runs in an
     `executor.level` span; a tracer with `sync` (`--trace-sync`) fences
     each with a device synchronize, so the span is the level's device
-    time, and notes the level's `needed` and surviving `frontier`.
+    time, and notes the level's `needed` and surviving `frontier`; the
+    last enumeration level's span notes whether it was `skipped`.
     Every host read of a device value is a `device.sync` span, every K1
     call a `kernel.<entry>` span."""
     n = plan.n
@@ -322,16 +331,27 @@ def _make_count_fn(plan: MatchingPlan, W: int, iters: int,
         sel[out_idx] = arangeC
         return sel[:cap], total
 
-    def row_slices(sel_idx, sub_total, cap, width, level, bucket):
-        """The live rows of a compacted sub-frontier (the reference's
-        `sub_valid` prefix, min(sub_total, cap) rows), in slices of at
-        most SLICE_ENTRIES candidates.  Reading the row count is a host
-        sync; in exchange only live rows are ever expanded, so the work
-        and memory of a level follow the frontier, not the capacity."""
+    def live_rows(sub_total, cap, level, bucket, needed=None):
+        """The live row count of a compacted sub-frontier (the
+        reference's `sub_valid` prefix, min(sub_total, cap) rows), read
+        on the host: a sync.  With `needed`, the same read also returns
+        its value, else None."""
         with get_tracer().span("device.sync", site="slice_rows",
                                level=level, bucket=bucket) as sp:
-            rows = min(int(sub_total), cap)
+            if needed is None:
+                total, need = int(sub_total), None
+            else:
+                total, need = torch.stack(
+                    (sub_total.to(I64), needed)).tolist()
+            rows = min(total, cap)
             sp.set(rows=rows)
+        return rows, need
+
+    def row_slices(sel_idx, rows, width):
+        """The first `rows` rows of a compacted sub-frontier in slices of
+        at most SLICE_ENTRIES candidates: only live rows are ever
+        expanded, so the work and memory of a level follow the frontier,
+        not the capacity."""
         step = max(SLICE_ENTRIES // max(width, 1), 1)
         for r0 in range(0, rows, step):
             yield sel_idx[r0:min(rows, r0 + step)]
@@ -349,10 +369,18 @@ def _make_count_fn(plan: MatchingPlan, W: int, iters: int,
             lo = w
 
     def expand_level(i, emb, valid, needed, indptr, degrees, flat,
-                     labs=None):
+                     labs=None, *, discard_overflow=False):
         """One level over the bucket layout.  Returns (new_emb,
-        new_valid, needed) — or, at the last enumeration level,
-        (count_contribution, None, needed)."""
+        new_valid, needed) — or, at the last enumeration level, (count,
+        None, needed).
+
+        Every bucket's rows are selected, and its demand taken into
+        `needed`, before any bucket is expanded.  At the last enumeration
+        level `needed` is then final, and the first bucket's row count
+        is read together with it.  If it exceeds C and the caller
+        discards an overflowing count (`discard_overflow`), no bucket's
+        rows are expanded and count is None: the K1 calls only feed the
+        count, so `needed` is the same as if they had run."""
         preds = plan.preds[i]
         extras = level_extras(i)
         label = vlabels[i]
@@ -364,13 +392,24 @@ def _make_count_fn(plan: MatchingPlan, W: int, iters: int,
         newcol = torch.zeros((C + 1,), dtype=I32, device=dev)
         offset = torch.zeros((), dtype=I64, device=dev)
         total_cnt = torch.zeros((), dtype=I64, device=dev)
+        picked = []
         for bi, width, cap, lo, is_last in bucket_ranges():
             rowmask = valid & (db > lo)
             if not is_last:
                 rowmask &= db <= width
             sel_idx, sub_total = select_rows(rowmask, cap)
             needed = torch.maximum(needed, scaled_need(sub_total, cap))
-            for idx in row_slices(sel_idx, sub_total, cap, width, i, bi):
+            picked.append((bi, width, cap, sel_idx, sub_total))
+        read_need = last_enum and discard_overflow
+        skip = False
+        for bi, width, cap, sel_idx, sub_total in picked:
+            rows, need = live_rows(sub_total, cap, i, bi,
+                                   needed if read_need and bi == 0 else None)
+            if need is not None:
+                skip = need > C
+            if skip:
+                continue
+            for idx in row_slices(sel_idx, rows, width):
                 sub_emb = emb[idx][:, :i]
                 sub_base = base_all[idx]
                 if last_enum:
@@ -384,7 +423,7 @@ def _make_count_fn(plan: MatchingPlan, W: int, iters: int,
                                extras, indptr, degrees, flat, width, offset,
                                parent, newcol, labs=labs, label=label)
         if last_enum:
-            return total_cnt, None, needed
+            return (None if skip else total_cnt), None, needed
         new_emb = torch.cat(
             [emb[parent[:C]][:, :i], newcol[:C, None]], dim=1)
         new_valid = arangeC < offset
@@ -423,8 +462,8 @@ def _make_count_fn(plan: MatchingPlan, W: int, iters: int,
                 sel_idx, sub_total = select_rows(rowmask, cap)
                 needed_extra = torch.maximum(needed_extra,
                                              scaled_need(sub_total, cap))
-                for idx in row_slices(sel_idx, sub_total, cap, width,
-                                      "iep", bi):
+                rows, _ = live_rows(sub_total, cap, "iep", bi)
+                for idx in row_slices(sel_idx, rows, width):
                     sub_emb = emb[idx]
                     sub_base = base[idx]
                     if use_kernel:
@@ -464,7 +503,7 @@ def _make_count_fn(plan: MatchingPlan, W: int, iters: int,
         if new_valid is not None:
             sp.set(frontier=int(new_valid.sum()))
 
-    def count(indptr, degrees, flat, labs, v0):
+    def count(indptr, degrees, flat, labs, v0, *, discard_overflow=False):
         tr = get_tracer()
         fenced = tr.enabled and tr.sync
         emb = v0[:, None].to(I32)                          # [T, 1]
@@ -481,7 +520,10 @@ def _make_count_fn(plan: MatchingPlan, W: int, iters: int,
         for i in range(1, depth):
             with tr.span("executor.level", level=i) as sp:
                 out, new_valid, needed = expand_level(
-                    i, emb, valid, needed, indptr, degrees, flat, labs)
+                    i, emb, valid, needed, indptr, degrees, flat, labs,
+                    discard_overflow=discard_overflow)
+                if new_valid is None:
+                    sp.set(skipped=out is None)
                 if fenced:
                     fence(sp, needed, new_valid)
             if new_valid is None:          # last enumeration level
@@ -670,7 +712,15 @@ class Matcher:
         dispatches, then yield ``(state, result)``; `result` is None
         while spans remain — pass `state` back in to resume exactly where
         the loop stopped (the final count is bit-identical to an
-        uninterrupted :meth:`count`)."""
+        uninterrupted :meth:`count`).
+
+        A dispatch that overflows its capacity is split or escalated and
+        its count thrown away, but for a single root at MAX_CAPACITY,
+        which is counted and flagged.  Every other dispatch lets the
+        count function skip its last level's row slices once its
+        `needed` is known to overflow (`discard_overflow`): `needed`, and
+        with it the outcome, is the same; the count's span notes the
+        dispatches whose tail was skipped (`tail_skipped`)."""
         if self._arrays is None:
             raise RuntimeError("matcher was released (evicted from cache)")
         graph, cfg = self.graph, self.cfg
@@ -693,15 +743,20 @@ class Matcher:
                 buckets=cfg.fingerprint(), sync=trace_sync,
                 resumed=state.dispatches > 0) as csp:
             spans = state.spans
-            segment = discarded = 0
+            segment = discarded = skipped = 0
             while spans and (budget is None or segment < budget):
                 s, e, cap = spans.pop()
                 self._capacity = max(self._capacity, cap)
                 width = min(chunk, cap)
                 with tr.span("executor.dispatch", v0_start=s, v0_end=e,
                              capacity=cap, frontier=e - s) as dsp:
-                    cnt, needed = self._fn(cap)(*call_args,
-                                                self._v0(s, e, width))
+                    # only a single root at the ceiling keeps the
+                    # count of an overflow
+                    keep = e - s == 1 and cap >= self.MAX_CAPACITY
+                    cnt, needed = self._fn(cap)(
+                        *call_args, self._v0(s, e, width),
+                        discard_overflow=not keep)
+                    skipped += cnt is None
                     # int() waits for the device, so the dispatch span
                     # covers real compute time
                     with tr.span("device.sync", site="dispatch_needed"):
@@ -728,7 +783,8 @@ class Matcher:
                 state.dispatches += 1
                 state.max_needed = max(state.max_needed, needed)
             csp.set(dispatches=segment, discarded=discarded,
-                    max_needed=state.max_needed, preempted=bool(spans))
+                    tail_skipped=skipped, max_needed=state.max_needed,
+                    preempted=bool(spans))
         if spans:
             return state, None
         return state, CountResult(count=state.total // self.plan.iep_divisor,
@@ -836,26 +892,39 @@ class ShardedMatcher:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _pass(self, capacity: int, v0: torch.Tensor):
+    def _pass(self, capacity: int, v0: torch.Tensor, *,
+              discard_overflow: bool = False):
         """This rank's chunks at `capacity`, then the reduction over the
-        ranks: (raw total, max needed) as 0-d int64 tensors, and this
-        rank's seconds before the reduction (its share of the pass: the
-        ranks' spread of it is the stripes' balance)."""
+        ranks: (raw total, max needed) as 0-d int64 tensors, this rank's
+        seconds before the reduction (its share of the pass: the ranks'
+        spread of it is the stripes' balance) and its chunks whose last
+        level was skipped.
+
+        With `discard_overflow` (a pass below MAX_CAPACITY: one chunk
+        over capacity reruns the whole pass), a chunk whose `needed`
+        overflows skips its last level's row slices and adds nothing to
+        the total, which the rerun replaces; its `needed`, and so the
+        pass's maximum, is exact."""
         fn = self._fn(capacity)
         a = self._arrays
         tot = torch.zeros((), dtype=I64, device=self.device)
         mx = torch.zeros((), dtype=I64, device=self.device)
+        skipped = 0
         t0 = time.perf_counter()
         for c0 in range(0, self._per, self.chunk):
             cnt, needed = fn(a.indptr, a.degrees, a.flat, a.labs,
-                             v0[c0:c0 + self.chunk])
-            tot += cnt
+                             v0[c0:c0 + self.chunk],
+                             discard_overflow=discard_overflow)
+            if cnt is None:
+                skipped += 1
+            else:
+                tot += cnt
             mx = torch.maximum(mx, needed)
         self._sync()
         local = time.perf_counter() - t0
         dist.all_reduce(tot, op=dist.ReduceOp.SUM, group=self.group)
         dist.all_reduce(mx, op=dist.ReduceOp.MAX, group=self.group)
-        return tot, mx, local
+        return tot, mx, local, skipped
 
     def warmup(self) -> None:
         """Build the kernel and run one pass over an all-sentinel stripe
@@ -864,8 +933,8 @@ class ShardedMatcher:
             raise RuntimeError("matcher was released (evicted from cache)")
         if self.cfg.use_kernel:
             ops.prepare(self.device)
-        _, needed, _ = self._pass(self.cfg.capacity,
-                                  torch.full_like(self._v0, self.graph.n))
+        _, needed, _, _ = self._pass(
+            self.cfg.capacity, torch.full_like(self._v0, self.graph.n))
         with get_tracer().span("device.sync", site="warmup"):
             int(needed)
 
@@ -907,20 +976,26 @@ class ShardedMatcher:
         """Passes until one fits its capacity; each pass's span notes
         its `outcome` as `Matcher.count`'s dispatches do: `escalated`
         (rerun at a doubled capacity, so discarded), `counted` or
-        `overflowed` (at MAX_CAPACITY, counted and flagged)."""
+        `overflowed` (at MAX_CAPACITY, counted and flagged).  A pass
+        below MAX_CAPACITY skips the last level of its overflowing
+        chunks (`_pass`); the pass's span and the count's note this
+        rank's chunks so skipped (`tail_skipped`)."""
         if self._arrays is None:
             raise RuntimeError("matcher was released (evicted from cache)")
         tr = get_tracer()
         # start from the last sufficient capacity, so a repeat skips the
         # undersized passes
         capacity = self._capacity
-        discarded = 0
+        discarded = tail_skipped = 0
         with tr.span("executor.count", depth=self.plan.depth,
                      sharded=True, chunk=self.chunk) as csp:
             while True:
                 with tr.span("executor.dispatch", capacity=capacity,
                              frontier=self.world * self._per) as dsp:
-                    cnt, needed, local = self._pass(capacity, self._v0)
+                    cnt, needed, local, skipped = self._pass(
+                        capacity, self._v0,
+                        discard_overflow=capacity < Matcher.MAX_CAPACITY)
+                    tail_skipped += skipped
                     with tr.span("device.sync", site="dispatch_needed"):
                         needed = int(needed)
                     if needed <= capacity:
@@ -933,7 +1008,7 @@ class ShardedMatcher:
                         with tr.span("device.sync", site="dispatch_count"):
                             total = int(cnt)
                     dsp.set(needed=needed, local_seconds=local,
-                            outcome=outcome)
+                            outcome=outcome, tail_skipped=skipped)
                 self.passes += 1
                 self.local_seconds += local
                 if outcome != "escalated":
@@ -942,7 +1017,7 @@ class ShardedMatcher:
                 while capacity < min(needed, Matcher.MAX_CAPACITY):
                     capacity *= 2
             csp.set(max_needed=needed, capacity=capacity,
-                    discarded=discarded)
+                    discarded=discarded, tail_skipped=tail_skipped)
         self._capacity = capacity
         return CountResult(count=total // self.plan.iep_divisor,
                            overflowed=needed > capacity, max_needed=needed)

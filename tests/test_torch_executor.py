@@ -323,6 +323,83 @@ def test_a_disabled_tracer_records_nothing_over_a_count(monkeypatch):
     assert len(tr) == 0 and tr.spans() == []
 
 
+def _traced_tails(m, plan):
+    """`m.count()` under an enabled tracer: (result, the count span's
+    attributes, [(outcome, the last level's `skipped`, count-mode K1
+    calls) of each dispatch])."""
+    old = get_tracer()
+    tr = set_tracer(Tracer(enabled=True))
+    try:
+        got = m.count()
+    finally:
+        set_tracer(old)
+    spans = tr.spans()
+    inside = _dispatch_of(spans)
+    (cnt,) = [s for s in spans if s["name"] == "executor.count"]
+    per = {s["id"]: [s["attrs"]["outcome"], None, 0] for s in spans
+           if s["name"] == "executor.dispatch"}
+    for s in spans:
+        if (s["name"] == "executor.level"
+                and s["attrs"]["level"] == plan.depth - 1):
+            assert per[inside[s["id"]]][1] is None     # one a dispatch
+            per[inside[s["id"]]][1] = s["attrs"]["skipped"]
+        elif (s["name"] == "kernel.level_expand_rows"
+              and s["attrs"]["mode"] == "count"):
+            per[inside[s["id"]]][2] += 1
+    return got, cnt["attrs"], list(per.values())
+
+
+@pytest.mark.parametrize("path", PATHS)
+def test_overflowing_dispatches_skip_their_counting_tail(path):
+    """P1 at capacity 128 over two buckets: every split or escalated
+    dispatch skips its last level (no count-mode K1 call), every counted
+    one runs it, the count's span notes as many skipped tails as
+    discarded dispatches, and count, `max_needed` and the flag stay the
+    reference's."""
+    plan = _plan(PATTERNS["P1"], False)
+    got, cnt, per = _traced_tails(_port("er48", plan, path, 128, BUCKETS),
+                                  plan)
+    assert (got.count, got.max_needed, got.overflowed) == _reference(
+        "er48", plan, 128, BUCKETS)
+    assert got.count == _oracle_count("er48", plan.pattern)
+    outcomes = {o for o, _, _ in per}
+    assert {"split", "escalated", "counted"} <= outcomes <= {
+        "split", "escalated", "counted"}
+    for outcome, skipped, calls in per:
+        assert skipped == (outcome != "counted"), (outcome, skipped)
+        if skipped:
+            assert calls == 0
+    assert cnt["tail_skipped"] == cnt["discarded"] == sum(
+        s for _, s, _ in per) > 0
+    if path == "kernel":
+        assert sum(c for _, _, c in per) > 0
+
+
+@pytest.mark.parametrize("path", PATHS)
+def test_a_kept_truncated_count_runs_its_tail(path, monkeypatch):
+    """With the escalation ceiling at 128 in both packages, a single
+    root that overflows it is counted and flagged, truncated: such an
+    `overflowed` dispatch runs its last level, and the count, its
+    `max_needed` and the flag equal the reference's."""
+    monkeypatch.setattr(tx.Matcher, "MAX_CAPACITY", 128)
+    monkeypatch.setattr(rx.Matcher, "MAX_CAPACITY", 128)
+    plan = _plan(PATTERNS["P1"], False)
+    g, _ = _graph("er48")
+    want = rx.count_embeddings(g, plan, rx.ExecutorConfig(
+        capacity=128, use_pallas=False, degree_buckets=BUCKETS))
+    got, cnt, per = _traced_tails(_port("er48", plan, path, 128, BUCKETS),
+                                  plan)
+    assert (got.count, got.max_needed, got.overflowed) == (
+        want.count, want.max_needed, want.overflowed)
+    assert got.overflowed
+    kept = [(s, c) for o, s, c in per if o == "overflowed"]
+    assert kept and not any(s for s, _ in kept)
+    if path == "kernel":
+        assert all(c > 0 for _, c in kept)
+    assert all(s == (o == "split") for o, s, _ in per)
+    assert cnt["tail_skipped"] == cnt["discarded"]
+
+
 def test_release_and_rebind():
     plan = _plan(PATTERNS["P1"], False)
     m = _port("er48", plan, "portable", 1 << 10, None)

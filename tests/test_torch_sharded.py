@@ -157,6 +157,57 @@ def _checks(group, rank, graphs):
     return out
 
 
+def _tail_checks(group, graphs):
+    """P1 at capacity 4,096 on both paths, traced with level fences, and
+    again with the count function's `discard_overflow` ignored: the
+    result, the sticky capacity and the passes of each, and per pass its
+    outcome, its `tail_skipped` and each chunk's last level as
+    (needed, skipped)."""
+    g, plan = _case_plan(CASES[0], graphs)
+    out = {}
+    for path in PATHS:
+        cfg = tx.ExecutorConfig(capacity=4096, use_kernel=path == "kernel")
+        m = tx.ShardedMatcher(g, plan, group, device="cpu", cfg=cfg)
+        old = get_tracer()
+        tr = set_tracer(Tracer(enabled=True, sync=True))
+        try:
+            r = m.count()
+        finally:
+            set_tracer(old)
+        spans = tr.spans()
+        by_id = {s["id"]: s for s in spans}
+        passes = {s["id"]: [s["attrs"]["capacity"], s["attrs"]["outcome"],
+                            s["attrs"]["tail_skipped"], []]
+                  for s in spans if s["name"] == "executor.dispatch"}
+        for s in spans:
+            if (s["name"] == "executor.level"
+                    and s["attrs"]["level"] == plan.depth - 1):
+                d = by_id[s["parent"]]
+                while d["name"] != "executor.dispatch":
+                    d = by_id[d["parent"]]
+                passes[d["id"]][3].append([s["attrs"]["needed"],
+                                           s["attrs"]["skipped"]])
+        (cnt,) = [s for s in spans if s["name"] == "executor.count"]
+
+        plain = tx.ShardedMatcher(g, plan, group, device="cpu", cfg=cfg)
+        fn_of = plain._fn
+
+        def unskipped(capacity, _fn_of=fn_of):
+            fn = _fn_of(capacity)
+            return lambda *a, discard_overflow=False: fn(*a)
+
+        plain._fn = unskipped
+        p = plain.count()
+        out[path] = {
+            "got": [r.count, r.max_needed, r.overflowed, m._capacity,
+                    m.passes],
+            "unskipped": [p.count, p.max_needed, p.overflowed,
+                          plain._capacity, plain.passes],
+            "passes": list(passes.values()),
+            "tail_skipped": cnt["attrs"]["tail_skipped"]}
+    return out
+
+
 def _count_rank(rank, world, rdv, out_dir):
     """One rank: every case of this world size on both paths (a repeat
     count after an escalating one), then the checks at W = 2."""
@@ -184,6 +235,7 @@ def _count_rank(rank, world, rdv, out_dir):
         out[case[0]] = rec
     if world == 2:
         out["_checks"] = _checks(group, rank, graphs)
+        out["_tails"] = _tail_checks(group, graphs)
     with open(os.path.join(out_dir, f"w{world}-r{rank}.json"), "w") as f:
         json.dump(out, f)
     dist.destroy_process_group()
@@ -290,6 +342,38 @@ def test_overflow_past_the_ceiling_is_reported(runs):
         assert passes == 2                  # 4,096, then the ceiling
         assert rank["_checks"]["ceiling_outcomes"] == [
             ["escalated", "overflowed"], 1]
+
+
+def test_overflowing_chunks_skip_their_tail_in_escalated_passes(runs):
+    """P1 at capacity 4,096 on two ranks: a chunk skips its last level
+    exactly where its `needed` overflows a pass below the ceiling, so
+    only escalated passes skip; the count, `max_needed`, the flag, the
+    sticky capacity and the passes equal the reference's and those of
+    the same count with no tail skipped."""
+    ref, port = runs
+    want = ref["P1"]["worlds"]["2"]
+    skipped_on_any_rank = {}
+    for rank in port[2]:
+        for path, rec in rank["_tails"].items():
+            count, needed, overflowed, capacity, n = rec["got"]
+            assert [count, needed, overflowed, capacity] == [
+                want["count"], want["max_needed"], want["overflowed"],
+                want["capacity"]], (path, rec)
+            assert rec["got"] == rec["unskipped"] and n > 1, (path, rec)
+            assert [o for _, o, _, _ in rec["passes"]] == [
+                "escalated"] * (n - 1) + ["counted"]
+            for i, (cap, outcome, tails, chunks) in enumerate(
+                    rec["passes"]):
+                assert chunks and all(s == (need > cap)
+                                      for need, s in chunks), (path, i)
+                assert tails == sum(s for _, s in chunks)
+                skipped_on_any_rank.setdefault((path, i), 0)
+                skipped_on_any_rank[(path, i)] += tails
+            assert rec["tail_skipped"] == sum(
+                t for _, _, t, _ in rec["passes"])
+    for (path, i), tails in skipped_on_any_rank.items():
+        n = port[2][0]["_tails"][path]["got"][4]
+        assert (tails > 0) == (i < n - 1), (path, i, tails)
 
 
 def test_rebind_refusals(runs):
